@@ -1,0 +1,253 @@
+"""Batched somatic calling over raw kept-only slabs, in torch.
+
+Port of somatic_sniper_tpu/models/somatic.py (:62-124, :137-274,
+:279-385, :395-472) for the fast-precision slab path: glfgen of both
+samples, consensus, the somatic score and the emission gates, the
+on-device dqstats, and compaction of the emitted sites into byte rows.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from somatic_sniper_tpu.constants import (GERMLINE, LOH, SOMATIC, UNKNOWN,
+                                          WILDTYPE)
+from somatic_sniper_tpu.models.allele_util import (
+    genotype_is_proper_subset,
+    should_filter_as_gor,
+    should_filter_as_loh,
+)
+from somatic_sniper_tpu.models.tables import ModelParams
+
+from .consensus import glf2cns_batch, make_qadd, somatic_score_batch
+from .glfgen import ColumnBatch, glfgen_batch
+from .tables import DeviceTables
+
+I32 = torch.int32
+F32 = torch.float32
+
+# bounds of the u8 row layout: the row index is split into lo/hi bytes
+# and the packed metadata carries depths and counts in bytes
+MAX_B = 65536
+MAX_D = 255
+
+# host-side field order of the compacted rows (the JAX package's order,
+# somatic_sniper_tpu/models/somatic.py:279-285); the leading columns
+# are the batch index of each emitted site
+COMPACT_FIELDS = (
+    "tumor_gt", "normal_gt", "tumor_cnsq", "normal_cnsq",
+    "tumor_vaq", "normal_vaq", "somatic_score",
+    "joint_tumor_gt", "joint_normal_gt", "joint_cnsq",
+    "tumor_status", "normal_status", "tumor_eff_gt", "normal_eff_gt",
+    "tumor_depth", "normal_depth",
+)
+
+
+class CallResult(NamedTuple):
+    """Per-column call record (device output; the host formats text)."""
+
+    emit: torch.Tensor
+    tumor_gt: torch.Tensor
+    normal_gt: torch.Tensor
+    tumor_cnsq: torch.Tensor
+    normal_cnsq: torch.Tensor
+    tumor_vaq: torch.Tensor
+    normal_vaq: torch.Tensor
+    somatic_score: torch.Tensor
+    joint_tumor_gt: torch.Tensor
+    joint_normal_gt: torch.Tensor
+    joint_cnsq: torch.Tensor
+    tumor_status: torch.Tensor
+    normal_status: torch.Tensor
+    tumor_eff_gt: torch.Tensor
+    normal_eff_gt: torch.Tensor
+    tumor_depth: torch.Tensor
+    normal_depth: torch.Tensor
+    tumor_dq: torch.Tensor   # [B, 18] int32 dqstats rows
+    normal_dq: torch.Tensor
+
+
+class CompactResult(NamedTuple):
+    """Emitted rows first: ``rows`` [B, 2 + 16 + 36] uint8 (index lo/hi
+    bytes, the COMPACT_FIELDS, tumor then normal dqstats); rows past
+    ``count`` are padding."""
+
+    count: torch.Tensor  # [] int32
+    rows: torch.Tensor   # [B, 54] uint8
+
+
+def _mean_499(s, o):
+    """Exact integer ``(int)(sum/occ + 0.499)`` (reference dqstats.c):
+    the f32 estimate is within +/-1 of the largest k with
+    ``(1000k - 499) * occ <= 1000 * sum``, and one integer-predicate
+    fixup each way makes it exact."""
+    o1 = o.clamp(min=1)
+    k0 = (s.to(F32) / o1.to(F32) + 0.499).to(I32)
+
+    def ok(k):
+        return (1000 * k - 499) * o1 <= 1000 * s
+
+    k = torch.where(ok(k0 + 1), k0 + 1, torch.where(ok(k0), k0, k0 - 1))
+    return torch.where(o > 0, k, 0)
+
+
+def _device_dqstats(slots, n_keep, rb4, wanted):
+    """[B, 18] int32 dqstats rows over raw kept-only lanes, bit-exact
+    with output.dqstats (reference dqstats.c:6-53), quirks included:
+    raw base codes (a '=' base is 0 and counts toward every base_occ)
+    and mean fields zeroed for un-wanted bases."""
+    B, D = slots.shape
+    s = slots
+    j_idx = torch.arange(D, device=s.device)[None, :]
+    valid = j_idx < n_keep[:, None]
+    mq = torch.where(valid, s & 0xFF, 0)
+    bq = torch.where(valid, (s >> 8) & 0xFF, 0)
+    b = (s >> 16) & 0xF
+    st = (s >> 20) & 1
+
+    def count(m):
+        return m.sum(dim=1, dtype=I32)
+
+    depth = n_keep
+    tot_mq = mq.sum(dim=1, dtype=I32)
+    is_ref = valid & (b == rb4[:, None])
+    not_ref = valid & (b != rb4[:, None])
+    dp4 = [count(is_ref & (st == 0)), count(is_ref & (st == 1)),
+           count(not_ref & (st == 0)), count(not_ref & (st == 1))]
+    occ, mean_bq, mean_mq = [], [], []
+    for j in range(4):
+        v = 1 << j
+        m = valid & ((b & v) == b)
+        o = count(m)
+        w = ((wanted & v) != 0).to(I32)
+        sb = torch.where(m, bq, 0).sum(dim=1, dtype=I32) * w
+        sm = torch.where(m, mq, 0).sum(dim=1, dtype=I32) * w
+        occ.append(o)
+        mean_bq.append(_mean_499(sb, o))
+        mean_mq.append(_mean_499(sm, o))
+    tot_mean = _mean_499(tot_mq, depth)
+    return torch.stack(mean_bq + mean_mq + occ + dp4 + [depth, tot_mean],
+                       dim=1)
+
+
+def call_batch(tumor: ColumnBatch, normal: ColumnBatch, dtabs: DeviceTables,
+               params: ModelParams) -> CallResult:
+    """Batched glf_somatic (reference somatic_sniper.c:109-273), fast
+    precision, with the dqstats rows of both samples."""
+    p = params
+    g_t = glfgen_batch(tumor, dtabs, p.cap_mapq)
+    g_n = glfgen_batch(normal, dtabs, p.cap_mapq)
+    t_b1, t_b2, t_s1, t_s2 = glf2cns_batch(g_t.lk, tumor.depth,
+                                           dtabs.q_r_int)
+    n_b1, n_b2, n_s1, n_s2 = glf2cns_batch(g_n.lk, normal.depth,
+                                           dtabs.q_r_int)
+    rb4 = tumor.ref16
+
+    # outer gate (reference somatic_sniper.c:127) + SNP gate (:156)
+    is_snp = ((g_t.depth > 0) & (g_n.depth > 0) & (rb4 != 15)
+              & (t_b1 != 15) & (n_b1 != 15) & (t_b1 != n_b1))
+    tumor_snp_q = torch.where(t_b2 == rb4, t_s1, t_s1 + t_s2).clamp(max=255)
+    normal_snp_q = torch.where(
+        (n_b1 != 15) & (n_b1 != rb4),
+        torch.where(n_b2 == rb4, n_s1, n_s1 + n_s2).clamp(max=255),
+        0,
+    )
+
+    score = somatic_score_batch(
+        g_t.lk, g_n.lk, rb4, dtabs.solo_prior, dtabs.joint_prior,
+        make_qadd(), p.use_joint_priors)
+    qps = score.q_posterior_sum
+
+    # joint-aware effective genotypes (reference somatic_sniper.c:216-223)
+    tumor_eff = torch.where(score.joint_tumor_gt != 0, score.joint_tumor_gt,
+                            t_b1)
+    normal_eff = torch.where(score.joint_normal_gt != 0,
+                             score.joint_normal_gt, n_b1)
+
+    loh = should_filter_as_loh(rb4, tumor_eff, normal_eff)
+    gor = should_filter_as_gor(rb4, tumor_eff, normal_eff)
+    emit = is_snp & (qps >= p.min_somatic_qual)
+    if not p.include_loh:
+        emit = emit & ~loh
+    if not p.include_gor:
+        emit = emit & ~gor
+
+    # statuses (reference somatic_sniper.c:241-261)
+    t_status = torch.where(
+        tumor_eff == normal_eff, GERMLINE,
+        torch.where(genotype_is_proper_subset(tumor_eff, normal_eff), LOH,
+                    torch.where(qps > 0, SOMATIC, UNKNOWN)),
+    ).to(I32)
+    n_status = torch.where(n_b1 == rb4, WILDTYPE, GERMLINE).to(I32)
+
+    wanted = rb4 | tumor_eff | normal_eff
+    return CallResult(
+        emit=emit, tumor_gt=t_b1, normal_gt=n_b1, tumor_cnsq=t_s1,
+        normal_cnsq=n_s1, tumor_vaq=tumor_snp_q, normal_vaq=normal_snp_q,
+        somatic_score=qps, joint_tumor_gt=score.joint_tumor_gt,
+        joint_normal_gt=score.joint_normal_gt,
+        joint_cnsq=score.joint_consensus_quality, tumor_status=t_status,
+        normal_status=n_status, tumor_eff_gt=tumor_eff,
+        normal_eff_gt=normal_eff, tumor_depth=g_t.depth,
+        normal_depth=g_n.depth,
+        tumor_dq=_device_dqstats(tumor.slots, tumor.n_keep, rb4, wanted),
+        normal_dq=_device_dqstats(normal.slots, normal.n_keep, rb4, wanted),
+    )
+
+
+def call_batch_compact(tumor: ColumnBatch, normal: ColumnBatch,
+                       dtabs: DeviceTables,
+                       params: ModelParams) -> CompactResult:
+    """call_batch + on-device compaction into u8 rows.
+
+    Row j holds the j-th emitted column (ascending batch index) for
+    j < count; the rest repeat column 0, like the JAX package's
+    ``nonzero(size=B, fill_value=0)``.  The compaction is a scatter, so
+    nothing waits on the device."""
+    B = tumor.slots.shape[0]
+    if B > MAX_B:
+        raise ValueError(f"u8 rows require B <= {MAX_B}, got {B}")
+    res = call_batch(tumor, normal, dtabs, params)
+    dev = res.emit.device
+    emit_i = res.emit.to(I32)
+    pos = torch.cumsum(emit_i, dim=0, dtype=I32) - emit_i
+    # emitted column b goes to row pos[b]; the rest to a dropped row B
+    dest = torch.where(res.emit, pos, B).long()
+    idx = torch.zeros(B + 1, dtype=torch.long, device=dev)
+    idx.scatter_(0, dest, torch.arange(B, device=dev))
+    idx = idx[:B]
+    fields = torch.stack([getattr(res, f) for f in COMPACT_FIELDS], dim=1)
+    full = torch.cat([
+        (idx & 0xFF)[:, None], (idx >> 8)[:, None],
+        fields[idx].long(), res.tumor_dq[idx].long(),
+        res.normal_dq[idx].long(),
+    ], dim=1)
+    rows = (full & 0xFF).to(torch.uint8)
+    return CompactResult(count=emit_i.sum(dtype=I32), rows=rows)
+
+
+def call_batch_packed(stacked, meta, dtabs: DeviceTables,
+                      params: ModelParams) -> CompactResult:
+    """Fast-path entry over one packed slab.
+
+    ``stacked`` [2, B, D] int32 raw kept-only lanes (tumor, normal);
+    ``meta`` [3, B] int32 with ``meta[0] = ref16 << 24`` and
+    ``meta[2] = d_t | d_n << 8 | nk_t << 16 | nk_n << 24`` (meta[1] is
+    unused by the raw-lane layout).  Layout contract of
+    io.native_api.slab_fill_pair."""
+    if stacked.dim() != 3 or stacked.shape[0] != 2:
+        raise ValueError(f"stacked: expected [2, B, D], got "
+                         f"{tuple(stacked.shape)}")
+    if stacked.shape[2] > MAX_D:
+        raise ValueError(
+            f"packed metadata requires D <= {MAX_D}, got {stacked.shape[2]}")
+    ref16 = (meta[0] >> 24) & 0xF
+    d_t = meta[2] & 0xFF
+    d_n = (meta[2] >> 8) & 0xFF
+    nk_t = (meta[2] >> 16) & 0xFF
+    nk_n = (meta[2] >> 24) & 0xFF
+    cb_t = ColumnBatch(slots=stacked[0], depth=d_t, ref16=ref16, n_keep=nk_t)
+    cb_n = ColumnBatch(slots=stacked[1], depth=d_n, ref16=ref16, n_keep=nk_n)
+    return call_batch_compact(cb_t, cb_n, dtabs, params)
