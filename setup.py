@@ -1,8 +1,9 @@
 """Build-time commit stamping (parity with the reference's
 build-common/cmake/VersionHelper.cmake:1-8, which bakes `git describe`
 into version.h).  Wheels/sdists built from a git checkout carry
-somatic_sniper_tpu/_commit.py; cli.main._commit_id() reads it, falling
-back to a live git query for editable installs."""
+somatic_sniper_tpu/_commit.py and somatic_sniper_tpu_torch/_commit.py;
+each package's cli.main._commit_id() reads its own, falling back to a
+live git query for editable installs."""
 
 import os
 import subprocess
@@ -23,11 +24,10 @@ class BuildPyWithCommit(build_py):
         except Exception:
             c = ""
         if c:
-            path = os.path.join(
-                self.build_lib, "somatic_sniper_tpu", "_commit.py"
-            )
-            with open(path, "w") as fh:
-                fh.write(f'COMMIT = "{c}"\n')
+            for pkg in ("somatic_sniper_tpu", "somatic_sniper_tpu_torch"):
+                path = os.path.join(self.build_lib, pkg, "_commit.py")
+                with open(path, "w") as fh:
+                    fh.write(f'COMMIT = "{c}"\n')
 
 
 setup(cmdclass={"build_py": BuildPyWithCommit})

@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from somatic_sniper_tpu.constants import GLF_BASE
+from ..constants import GLF_BASE
 
 I32 = torch.int32
 

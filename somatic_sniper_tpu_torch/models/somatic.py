@@ -14,18 +14,15 @@ from typing import NamedTuple
 
 import torch
 
-from somatic_sniper_tpu.constants import (GERMLINE, LOH, SOMATIC, UNKNOWN,
-                                          WILDTYPE)
-from somatic_sniper_tpu.models.allele_util import (
+from ..constants import GERMLINE, LOH, SOMATIC, UNKNOWN, WILDTYPE
+from .allele_util import (
     genotype_is_proper_subset,
     should_filter_as_gor,
     should_filter_as_loh,
 )
-from somatic_sniper_tpu.models.tables import ModelParams
-
 from .consensus import glf2cns_batch, make_qadd, somatic_score_batch
 from .glfgen import ColumnBatch, glfgen_batch
-from .tables import DeviceTables
+from .tables import DeviceTables, ModelParams
 
 I32 = torch.int32
 F32 = torch.float32

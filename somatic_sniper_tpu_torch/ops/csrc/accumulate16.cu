@@ -13,23 +13,30 @@
 // _fast_accumulate16).  Weights come from the host-built 256-entry f32
 // table, table[min(r, 255)].
 //
-// What bounds it on an H100: at the 8-64 depth buckets, memory and launch
-// cost (65536 columns x 16 lanes is 2 MB of lanes, read once; outputs are
-// 12 words a column); at the deep buckets the per-column sort.
+// What bounds it on an H100: by bytes a memory kernel (a column of D = 40
+// is 80 bytes of lanes in and 48 bytes out), but at the depths that carry
+// the u16 batch path (D = 32 and 40) a column's work is a few hundred
+// warp instructions, as in accumulate.cu: instruction issue sets the
+// time, and halving the lane bytes buys little (a fifth at D = 40).  At
+// the deep buckets it is the per-column sort.
 //
 // Design: a sort, not a count.  The key cls << 8 | (255 - effq) (lanes
 // that take no part: class 8, after every real class) goes through the
-// same bitonic sort, class-start step and fixed-order sums as
-// accumulate.cu (class_rank.cuh), so the three accumulates share one
-// rank and one summation order.  A counting rank (an 8 x 256 histogram
-// per column) was the alternative; at the shallow buckets that carry most
-// columns its 8 KB of histogram per column would cost more to clear than
-// the 32-key sort.  The TPU kernel's lane packing of several columns into
-// one 128-lane row and its rotation loop existed for the TPU's lane width;
-// here a block holds 256 / P columns of P >= 32 keys, and every depth the
-// batch path produces runs, with no fallback (the TPU kernel could not pad
-// past 128).  Up to P = 256 the kernel takes P as a template argument, so
-// the sort network is unrolled, as in accumulate32.cu.
+// same rank and fixed-order sums as accumulate.cu (class_rank.cuh), so
+// the three accumulates share one rank and one summation order.  To
+// P = 256 that is the warp layout: a warp owns a column, keys in
+// registers, the row read contiguously with loads of up to 128 bits
+// (D % 8 == 0 at eight keys a lane), the bitonic network on shuffles and
+// in-thread exchanges, class starts from one ballot a register, sums by
+// a butterfly in the warp; no shared memory and no block barrier.  A
+// counting rank (an 8 x 256 histogram per column, or a shuffle loop over
+// the column's lanes) was the alternative: the histogram costs more to
+// clear than a 32-key sort, and the shuffle loop needs as many shuffles
+// as the sort with twice the compares (see accumulate.cu).  Above P = 256
+// the block layout (one block a column).  The TPU kernel's lane packing
+// of several columns into one 128-lane row and its rotation loop existed
+// for the TPU's lane width; every depth the batch path produces runs
+// here, with no fallback (the TPU kernel could not pad past 128).
 
 #include <cuda_runtime.h>
 
@@ -39,53 +46,74 @@ namespace {
 
 using namespace class_rank;
 
-constexpr int kTailKey = (kNumClasses << 8) | 0xFF;
+constexpr int kShift16 = 8;
+constexpr int kTailKey = (kNumClasses << kShift16) | 0xFF;
+
+// The sort key of one u16 lane.
+__device__ inline int lane_key(int v) {
+  const int eff = v & 0xFF;
+  if (eff == 0) return kTailKey;
+  const int cls = ((v >> 10) & 1) * 4 + ((v >> 8) & 3);
+  return (cls << kShift16) | (255 - eff);
+}
+
+struct LaneKeyEff {
+  __device__ int operator()(int key) const { return 255 - (key & 0xFF); }
+};
 
 template <int kP>
-__global__ void __launch_bounds__(kP > 0 ? kSmallThreads : kBigThreads)
+__global__ void __launch_bounds__(kP > 0 ? kWarpThreads : kBigThreads,
+                                  kP > 0 ? 1 : kBigBlocksPerSM)
 accumulate16_kernel(const unsigned short* __restrict__ slots16,
                     const int* __restrict__ n_keep,
                     const float* __restrict__ weights,
                     float* __restrict__ esum, float* __restrict__ fsum,
                     int* __restrict__ c_out, int* scratch, int B, int D,
-                    int P, int cols) {
-  extern __shared__ int smem_keys[];
-  __shared__ int start[kMaxColsPerBlock][kNumClasses];
-  const Geometry<kP> g(P, cols);
-  int* keys = scratch != nullptr ? scratch + (size_t)blockIdx.x * g.P
-                                 : smem_keys;
+                    int P, int cols, bool wide) {
+  if constexpr (kP > 0) {
+    constexpr int K = kP / 32;
+    const int col = warp_column(B);
+    if (col < 0) return;
+    const int nk = min(n_keep[col], D);
+    unsigned short v[K];
+    int pos[K], key[K];
+    load_row<unsigned short, K>(slots16 + (size_t)col * D, nk, wide, v, pos);
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      key[q] = pos[q] < nk ? lane_key(v[q]) : kTailKey;
+    }
+    const WarpClassSums s =
+        warp_rank_sums<kShift16, kP>(key, weights, LaneKeyEff{});
+    warp_store_class_sums(s, col, esum, fsum, c_out);
+  } else {
+    extern __shared__ int smem_keys[];
+    __shared__ int start[kMaxColsPerBlock][kNumClasses];
+    const Geometry g(P, cols);
+    int* keys = scratch != nullptr ? scratch + (size_t)blockIdx.x * g.P
+                                   : smem_keys;
+    const int nk = g.col < B ? min(n_keep[g.col], D) : 0;
+    for (int i = threadIdx.x; i < g.P * g.cols; i += g.threads) {
+      const int x = i & (g.P - 1);
+      keys[i] = x < nk ? lane_key(slots16[(size_t)g.col * D + x]) : kTailKey;
+    }
+    __syncthreads();
 
-  const int nk = g.col < B ? min(n_keep[g.col], D) : 0;
-  for (int i = threadIdx.x; i < g.P * g.cols; i += g.threads) {
-    const int x = i & (g.P - 1);
-    int key = kTailKey;
-    if (x < nk) {
-      const int v = slots16[(size_t)g.col * D + x];
-      const int eff = v & 0xFF;
-      if (eff > 0) {
-        const int cls = ((v >> 10) & 1) * 4 + ((v >> 8) & 3);
-        key = (cls << 8) | (255 - eff);
+    segmented_sort(keys, g);
+    class_starts<kShift16>(keys, g, start);
+
+    Sums<4> s = {};
+    for (int i = threadIdx.x; i < g.P * g.cols; i += g.threads) {
+      const int k = keys[i];
+      const int cls = k >> kShift16;
+      if (cls < kNumClasses) {
+        const int rank = (i & (g.P - 1)) - start[g.seg][cls];
+        add_read(s, cls & 3, weights[min(rank, kMaxRank)], LaneKeyEff{}(k));
       }
     }
-    keys[i] = key;
+
+    s = column_sums(s, g);
+    if (g.leader() && g.col < B) store_class_sums(s, g.col, esum, fsum, c_out);
   }
-  __syncthreads();
-
-  segmented_sort(keys, g);
-  class_starts<8>(keys, g, start);
-
-  Sums<4> s = {};
-  for (int i = threadIdx.x; i < g.P * g.cols; i += g.threads) {
-    const int k = keys[i];
-    const int cls = k >> 8;
-    if (cls < kNumClasses) {
-      const int rank = (i & (g.P - 1)) - start[g.seg][cls];
-      add_read(s, cls & 3, weights[min(rank, kMaxRank)], 255 - (k & 0xFF));
-    }
-  }
-
-  s = column_sums(s, g);
-  if (g.leader() && g.col < B) store_class_sums(s, g.col, esum, fsum, c_out);
 }
 
 }  // namespace
@@ -102,7 +130,9 @@ extern "C" int sniper_accumulate16(const void* slots16, const void* n_keep,
     return (int)cudaErrorInvalidValue;
   }
   return with_kp(l, [&](auto kp) {
-    return launch(accumulate16_kernel<decltype(kp)::value>, l, B,
+    constexpr int kP = decltype(kp)::value;
+    constexpr int kRegs = kP > 0 ? kP / 32 : 1;
+    return launch(accumulate16_kernel<kP>, l, B,
                   static_cast<cudaStream_t>(stream),
                   static_cast<const unsigned short*>(slots16),
                   static_cast<const int*>(n_keep),
@@ -110,6 +140,7 @@ extern "C" int sniper_accumulate16(const void* slots16, const void* n_keep,
                   static_cast<float*>(esum), static_cast<float*>(fsum),
                   static_cast<int*>(c),
                   l.scratch_ints > 0 ? static_cast<int*>(scratch) : nullptr,
-                  B, D, l.P, l.cols);
+                  B, D, l.P, l.cols,
+                  rows_take_wide_loads<unsigned short, kRegs>(slots16, D));
   });
 }

@@ -1,43 +1,47 @@
 """Region-sharded streaming driver of the torch port.
 
-Port of somatic_sniper_tpu/parallel/sharded.py:126-420.  The windowing,
-shard split, contig-transition quirk carry and manifest are imported
-from the JAX module (its module level is jax-free); the driver loop is
-carried here because the JAX one imports its device pieces from
-``somatic_sniper_tpu.runner``, which needs JAX.  Fast windows that can
-plan feed the port's ``TorchSlabDispatcher``; fast windows that cannot
-(no reference) go through the batch path with a deferred one-window
-collect; exact windows are scored by the native host layer.  The
-concatenation of all windows' lines is byte-identical to the whole-file
-run.  This windowed driver needs the native region loader, as the JAX
-one does.
+The port's own copy of somatic_sniper_tpu/parallel/sharded.py: the
+windows, the shard split, the contig-transition quirk carry and the
+manifest are copied whole; the driver loop (:126-420 there) is ported,
+because the source's imports its device pieces from the JAX runner.
+Not copied: ``call_pair_sharded`` (a flattened record stream nothing in
+the port uses).  Fast windows that can plan feed the port's
+``TorchSlabDispatcher``; fast windows that cannot (no reference) go
+through the batch path with a deferred one-window collect; exact
+windows are scored by the native host layer.  This windowed driver
+needs the native region loader, as the JAX one does.
+
+The genome is cut into deterministic windows, each sought through the
+BAI index: constant memory at whole-genome scale, shardable across
+processes, and resumable per window.  The concatenation of all windows'
+records (in window order) is byte-identical to the whole-file run.  The
+one cross-window dependency is the reference's contig-transition drop
+quirk (sniper_pileup.c:216): the first kept read of a contig is dropped
+when its end precedes the previous contig's last kept-read start, which
+a window at a contig start cannot see locally, so the driver carries
+that value in via ``region_last_kept_start``.  Windows must be longer
+than the longest read (columns of a quirk-dropped read must all fall in
+the contig's first window).
 """
 
 from __future__ import annotations
 
+import ctypes
+import json
 import os
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import wait as futures_wait
+from pathlib import Path
 from typing import Iterator
 
 import numpy as np
 
-from somatic_sniper_tpu.io import bai, native_api
-from somatic_sniper_tpu.io.bam import read_bam_header
-from somatic_sniper_tpu.io.fasta import FastaFile
-from somatic_sniper_tpu.models.tables import ModelParams, build_tables
-from somatic_sniper_tpu.parallel.sharded import (  # noqa: F401 (re-export)
-    DEFAULT_WINDOW,
-    Manifest,
-    _QuirkCarry,
-    genome_windows,
-    shard_windows,
-)
-from somatic_sniper_tpu.pileup.prefilter import prefilter_tables
-from somatic_sniper_tpu.utils.stats import STATS
-
-from ..models.tables import device_tables
+from ..io import bai, native, native_api
+from ..io.bam import BamHeader, read_bam_header
+from ..io.fasta import FastaFile
+from ..models.tables import ModelParams, build_tables, device_tables
+from ..pileup.prefilter import prefilter_tables
 from ..runner import (
     NOT_PORTED,
     RefCache,
@@ -52,7 +56,90 @@ from ..runner import (
     require_native,
     submit_batches,
 )
+from ..utils.stats import STATS
 from .slab import TorchSlabDispatcher
+
+DEFAULT_WINDOW = 250_000
+
+
+def genome_windows(
+    ref_lengths: list[int], window_size: int = DEFAULT_WINDOW
+) -> list[tuple[int, int, int]]:
+    """Deterministic (tid, beg, end) windows covering the genome."""
+    out = []
+    for tid, ln in enumerate(ref_lengths):
+        beg = 0
+        while beg < ln:
+            out.append((tid, beg, min(beg + window_size, ln)))
+            beg += window_size
+    return out
+
+
+def shard_windows(windows, shards: int, shard_index: int | None):
+    """Contiguous split of the window list across shards (keeps each
+    shard's output a contiguous genome span, so shard outputs
+    concatenate in shard order)."""
+    if shard_index is None:
+        return list(windows)
+    n = len(windows)
+    lo = shard_index * n // shards
+    hi = (shard_index + 1) * n // shards
+    return list(windows[lo:hi])
+
+
+class _QuirkCarry:
+    """Per-file carried previous-contig last kept-read start values."""
+
+    def __init__(self, bam_path: str, index: bai.BaiIndex, header: BamHeader,
+                 flag_mask: int, mapq_thresh: int):
+        self.path = bam_path
+        self.index = index
+        self.header = header
+        self.flag_mask = flag_mask
+        self.mapq_thresh = mapq_thresh
+
+    def for_window(self, tid: int, beg: int) -> int:
+        """drop_first_end_le for a window, or -1 when not applicable."""
+        if beg != 0 or tid == 0:
+            return -1
+        lib = native.get_lib()
+        # previous contig with any indexed reads
+        for p in range(tid - 1, -1, -1):
+            if self.index.refs[p].bins:
+                break
+        else:
+            return -1
+        plen = self.header.ref_lengths[p]
+        # Backward scan in DISJOINT, escalating spans: each BGZF region
+        # is decoded at most once (worst case = one pass over the
+        # contig, vs the old overlapping escalation that re-decoded the
+        # tail each round).  A span's result may be a read that merely
+        # overlaps it (start < span begin), so a candidate is only final
+        # once it is >= the current span's begin — an earlier span can
+        # no longer hold a later start.
+        best = -1
+        hi = plen
+        look = 1 << 15
+        while hi > 0:
+            beg_p = max(0, hi - look)
+            chunks = bai.region_chunks(self.index, p, beg_p, hi)
+            if chunks:
+                ch = np.ascontiguousarray(
+                    np.asarray(chunks, np.int64).reshape(-1, 2)
+                )
+                last = lib.region_last_kept_start(
+                    self.path.encode(),
+                    ch.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                    len(ch), p, beg_p, hi,
+                    self.flag_mask, self.mapq_thresh, 2,
+                )
+                if last > best:
+                    best = int(last)
+                if best >= beg_p:
+                    return best
+            hi = beg_p
+            look *= 4
+        return best
 
 
 def call_pair_windows(
@@ -242,3 +329,32 @@ def call_pair_sharded(*args, **kwargs) -> Iterator[str]:
     """Flattened line stream over :func:`call_pair_windows`."""
     for _, _, lines in call_pair_windows(*args, **kwargs):
         yield from lines
+
+
+class Manifest:
+    """Append-only per-window completion log for resumable runs.
+
+    Each line: {"window": i, "offset": byte offset of the output file
+    AFTER the window's records were flushed}.  On resume, the driver
+    truncates the output to the last completed offset and skips the
+    recorded windows — a crashed run loses at most one window.
+    """
+
+    def __init__(self, path: str | Path):
+        self.path = Path(path)
+        self.done: dict[int, int] = {}
+        if self.path.exists():
+            for ln in self.path.read_text().splitlines():
+                try:
+                    d = json.loads(ln)
+                    self.done[int(d["window"])] = int(d["offset"])
+                except (ValueError, KeyError):
+                    continue
+
+    def resume_offset(self) -> int | None:
+        return max(self.done.values()) if self.done else None
+
+    def mark(self, window: int, offset: int) -> None:
+        self.done[window] = offset
+        with open(self.path, "a") as fh:
+            fh.write(json.dumps({"window": window, "offset": offset}) + "\n")

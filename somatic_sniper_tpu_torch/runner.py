@@ -1,8 +1,8 @@
 """Single-host calling driver of the torch port: BAM pair -> output lines.
 
 The host helpers below are jax-free copies of somatic_sniper_tpu/runner.py
-(that module imports jax at module level, so none of it can be imported
-on a machine without JAX); each names its source lines.  The device path
+(the port imports nothing of the JAX package); each names its source
+lines.  The device path
 is the port's: ``TorchSlabDispatcher`` and the batch path
 (``submit_batches`` / ``collect_pending``) over ``models.somatic``.
 
@@ -24,24 +24,20 @@ from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
-
 import torch
 
-from somatic_sniper_tpu.constants import NT16_TABLE
-from somatic_sniper_tpu.io import native_api
-from somatic_sniper_tpu.io.bam import BamHeader, read_bam, read_bam_header
-from somatic_sniper_tpu.io.fasta import FastaFile
-from somatic_sniper_tpu.models.tables import ModelParams, build_tables
-from somatic_sniper_tpu.output.dqstats import get_dqstats_rows
-from somatic_sniper_tpu.pileup.columnize import (DEPTH_BUCKETS, PairedBatch,
-                                                 columnize, paired_batches,
-                                                 split_key)
-from somatic_sniper_tpu.pileup.prefilter import (build_ref16, prefilter_tables,
-                                                 pure_flags)
-from somatic_sniper_tpu.utils.stats import STATS
-
+from .constants import NT16_TABLE
+from .io import native_api
+from .io.bam import BamHeader, read_bam, read_bam_header
+from .io.fasta import FastaFile
 from .models.somatic import COMPACT_FIELDS, CallResult, call_batch_stacked
-from .models.tables import DeviceTables, device_tables
+from .models.tables import (DeviceTables, ModelParams, build_tables,
+                            device_tables)
+from .output.dqstats import get_dqstats_rows
+from .pileup.columnize import (DEPTH_BUCKETS, PairedBatch, columnize,
+                               paired_batches, split_key)
+from .pileup.prefilter import build_ref16, prefilter_tables, pure_flags
+from .utils.stats import STATS
 
 NOT_PORTED = "not yet in the torch port"
 # rows a batch's compact result holds (runner.py:807); a batch that
@@ -83,7 +79,7 @@ def require_native(what: str) -> None:
     if not native_api.available():
         raise NativeUnavailable(
             f"{what} needs the native host library "
-            "(somatic_sniper_tpu/io/native), which is unavailable")
+            "(somatic_sniper_tpu_torch/io/native), which is unavailable")
 
 
 def _load_pileups(tumor_bam, normal_bam, params, flag_args=None):
@@ -495,7 +491,7 @@ def emit_records_compact(keys: np.ndarray, rows: np.ndarray,
     lines = native_api.emit_lines(fmt, names, tids, poss, chars, rb4, fields,
                                   rows_t, rows_n)
     if lines is None:  # non-ASCII reference names: the Python builders
-        from somatic_sniper_tpu.output.fast_emit import LINE_BUILDERS
+        from .output.fast_emit import LINE_BUILDERS
 
         fl = {k: np.asarray(v).tolist() for k, v in f.items()}
         lines = LINE_BUILDERS[fmt](

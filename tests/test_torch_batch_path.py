@@ -19,21 +19,22 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 from tests.torch_port_util import (f32_tables, filtered_lines,  # noqa: E402
-                                   random_stacked)
+                                   port_params, random_stacked)
 
 from somatic_sniper_tpu import runner as jrunner  # noqa: E402
-from somatic_sniper_tpu.io import native_api  # noqa: E402
+from somatic_sniper_tpu.io import native_api as jnative_api  # noqa: E402
 from somatic_sniper_tpu.models import somatic as js  # noqa: E402
 from somatic_sniper_tpu.models import tables as T  # noqa: E402
-from somatic_sniper_tpu.models.tables import ModelParams  # noqa: E402
-from somatic_sniper_tpu.utils.contract import diff_records  # noqa: E402
-from somatic_sniper_tpu.utils.stats import STATS  # noqa: E402
 from somatic_sniper_tpu_torch import runner  # noqa: E402
 from somatic_sniper_tpu_torch.cli.main import main  # noqa: E402
+from somatic_sniper_tpu_torch.io import native_api  # noqa: E402
 from somatic_sniper_tpu_torch.models import somatic as ts  # noqa: E402
-from somatic_sniper_tpu_torch.models.tables import device_tables  # noqa: E402
+from somatic_sniper_tpu_torch.models.tables import (  # noqa: E402
+    ModelParams, build_tables, device_tables)
 from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk  # noqa: E402
 from somatic_sniper_tpu_torch.parallel import sharded  # noqa: E402
+from somatic_sniper_tpu_torch.utils.contract import diff_records  # noqa: E402
+from somatic_sniper_tpu_torch.utils.stats import STATS  # noqa: E402
 
 CPU = torch.device("cpu")
 PM1 = ("tumor_cnsq", "normal_cnsq", "tumor_vaq", "normal_vaq",
@@ -42,8 +43,8 @@ PM1 = ("tumor_cnsq", "normal_cnsq", "tumor_vaq", "normal_vaq",
 
 def _stacked_both(B, D, seed, packed16, use_joint, compact):
     stacked, meta = random_stacked(B, D, seed, packed16)
-    params = ModelParams(use_joint_priors=use_joint,
-                         somatic_mutation_rate=0.001, min_somatic_qual=0)
+    params = T.ModelParams(use_joint_priors=use_joint,
+                           somatic_mutation_rate=0.001, min_somatic_qual=0)
     tabs = T.build_tables(params)
     fk, coef, lhet = f32_tables(tabs)
     want = js.call_batch_stacked(
@@ -55,7 +56,9 @@ def _stacked_both(B, D, seed, packed16, use_joint, compact):
         packed16=packed16, compact=compact)
     s = torch.from_numpy(stacked if packed16 else stacked.view(np.int32))
     got = ts.call_batch_stacked(s, torch.from_numpy(meta),
-                                device_tables(tabs, CPU), params,
+                                device_tables(build_tables(port_params(params)),
+                                              CPU),
+                                port_params(params),
                                 packed16=packed16, compact=compact,
                                 max_emit=B)
     return got, want
@@ -103,12 +106,12 @@ def test_call_batch_stacked_caps_rows():
     params = ModelParams(min_somatic_qual=0)
     res = ts.call_batch_stacked(torch.from_numpy(stacked),
                                 torch.from_numpy(meta),
-                                device_tables(T.build_tables(params), CPU),
+                                device_tables(build_tables(params), CPU),
                                 params, packed16=True, max_emit=4)
     assert res.rows.shape == (4, 17) and int(res.count) > 4
     full = ts.call_batch_stacked(torch.from_numpy(stacked),
                                  torch.from_numpy(meta),
-                                 device_tables(T.build_tables(params), CPU),
+                                 device_tables(build_tables(params), CPU),
                                  params, packed16=True, max_emit=128,
                                  compact=False)
     emitted = np.nonzero(full.emit.numpy())[0]
@@ -116,7 +119,7 @@ def test_call_batch_stacked_caps_rows():
     with pytest.raises(TypeError):
         ts.call_batch_stacked(torch.from_numpy(stacked.astype(np.int32)),
                               torch.from_numpy(meta),
-                              device_tables(T.build_tables(params), CPU),
+                              device_tables(build_tables(params), CPU),
                               params, packed16=True, max_emit=128)
 
 
@@ -135,9 +138,11 @@ def _port_lines(d, fmt, ref=True, **kw):
 
 @pytest.fixture
 def no_native(monkeypatch):
-    """The native host library switched off for the loaders (emit still
-    renders natively, which changes no byte)."""
+    """The native host library switched off for the loaders of the port
+    and of the JAX package (emit still renders natively, which changes
+    no byte)."""
     monkeypatch.setattr(native_api, "available", lambda: False)
+    monkeypatch.setattr(jnative_api, "available", lambda: False)
 
 
 @pytest.mark.parametrize("fmt", ["vcf", "classic"])

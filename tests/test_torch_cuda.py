@@ -7,7 +7,7 @@ with one card:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's conftest configures JAX, which these tests
-do not use.)
+do not use; they import the port alone.)
 
 Tolerances as in the CPU tests: c/rms and the assembly exact, the f32
 class sums within rtol 1e-6, atol 1e-5 (summation order), the rows
@@ -25,11 +25,11 @@ from tests.torch_port_util import (filtered_lines,  # noqa: E402
                                    hazard_column, random_raw32, random_slab,
                                    random_stacked, random_u32, to_packed16)
 
-from somatic_sniper_tpu.models import tables as T  # noqa: E402
-from somatic_sniper_tpu.utils.contract import diff_records  # noqa: E402
 from somatic_sniper_tpu_torch.models import somatic as ts  # noqa: E402
+from somatic_sniper_tpu_torch.models import tables as T  # noqa: E402
 from somatic_sniper_tpu_torch.models.tables import device_tables  # noqa: E402
 from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk  # noqa: E402
+from somatic_sniper_tpu_torch.utils.contract import diff_records  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 DATA = Path(__file__).resolve().parent / "data"
@@ -126,11 +126,15 @@ def _assert_sums(k, p, D):
 
 
 @pytest.mark.parametrize("B,D", [(4096, 16), (300, 48), (257, 128),
-                                 (64, 1024), (2, 20000)])
+                                 (64, 1024), (2, 20000), (1001, 31),
+                                 (1001, 33), (517, 65), (131, 129),
+                                 (67, 255), (3, 1)])
 def test_rank_kernels_match_plain_on_card(dev, B, D):
     """accumulate and accumulate16 against their plain versions at every
-    layout: many columns a block (P <= 256), a block a column with keys in
-    shared memory, and with keys in the global scratch (D > 16384)."""
+    layout: a warp a column with 1, 2, 4 and 8 keys a lane (P = 32 .. 256,
+    at the depths on both sides of each step, and at B that fills no whole
+    block), a block a column with keys in shared memory, and with keys in
+    the global scratch (D > 16384)."""
     w = device_tables(T.build_tables(T.ModelParams()), dev).fk_weights
     slots, depth, ref16 = random_u32(B, D, D)
     depth[0] = D  # one full column
@@ -182,8 +186,8 @@ def test_call_batch_stacked_card_matches_cpu(dev, packed16):
 def test_cli_fast_on_card_without_native_golden(dev, tmp_path, monkeypatch):
     """The whole-file CLI with the native loaders switched off: pure-
     Python decode, u16 batches through accumulate16 on the card."""
-    from somatic_sniper_tpu.io import native_api
     from somatic_sniper_tpu_torch.cli.main import main
+    from somatic_sniper_tpu_torch.io import native_api
 
     monkeypatch.setattr(native_api, "available", lambda: False)
     gk.reset_launches()

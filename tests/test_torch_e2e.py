@@ -18,9 +18,9 @@ torch.set_num_threads(1)
 
 from tests.torch_port_util import filtered_lines  # noqa: E402
 
-from somatic_sniper_tpu.utils.contract import diff_records  # noqa: E402
 from somatic_sniper_tpu_torch.cli.main import main  # noqa: E402
 from somatic_sniper_tpu_torch.ops import build  # noqa: E402
+from somatic_sniper_tpu_torch.utils.contract import diff_records  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -84,7 +84,8 @@ def test_windowed_bytes_independent_of_window_size(data_dir, tmp_path,
     ("whole-no-native", "fast"),
 ])
 def test_cli_never_imports_jax(data_dir, tmp_path, driver, precision):
-    """The CLI runs with ``import jax`` made impossible: the whole-file
+    """The CLI runs with ``import jax`` and ``import somatic_sniper_tpu``
+    made impossible: the whole-file
     path on the golden pair (also with the native library missing, the
     pure-Python decode and u16 batch path), and the windowed driver (the
     path of any reference over 1.5 Mb) on sim1 in both precisions."""
@@ -102,6 +103,7 @@ def test_cli_never_imports_jax(data_dir, tmp_path, driver, precision):
                   str(d / "normal.bam")]
         want = d / "expected.vcf"
     code = ("import sys; sys.modules['jax'] = None\n"
+            "sys.modules['somatic_sniper_tpu'] = None\n"
             "from somatic_sniper_tpu_torch.cli.main import main\n"
             "sys.exit(main(sys.argv[1:]))\n")
     r = subprocess.run(

@@ -6,6 +6,7 @@ the port as numpy arrays, so both sides see the same bits.
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -57,6 +58,13 @@ def random_slab(B: int, D: int, seed: int):
     meta[2] = (d_t.astype(np.int64) | d_n.astype(np.int64) << 8
                | nk_t.astype(np.int64) << 16 | nk_n.astype(np.int64) << 24)
     return stacked, meta.astype(np.uint32).view(np.int32)
+
+
+def port_params(jparams):
+    """The port's ModelParams with the fields of the JAX package's."""
+    from somatic_sniper_tpu_torch.models.tables import ModelParams
+
+    return ModelParams(**dataclasses.asdict(jparams))
 
 
 def f32_tables(tabs):
