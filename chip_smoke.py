@@ -7,7 +7,10 @@ closing ``{"ok": true, ...}`` line is never printed):
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the port's native host library (g++) and of the CUDA kernels
-   (nvcc) from the sources under ``somatic_sniper_tpu_torch/``;
+   (nvcc) from the sources under ``somatic_sniper_tpu_torch/``, the
+   registers a thread of every kernel (``nvcc -Xptxas -v``), and the
+   launch floor: the device time of an empty kernel of 1024 blocks of 256
+   threads, queued back to back;
 3. each kernel against its plain torch version on the card, with the
    median time of 20 timed calls of each: ``accumulate32`` and
    ``assembly10`` on random raw slabs at slab shapes; ``accumulate`` and
@@ -16,18 +19,23 @@ closing ``{"ok": true, ...}`` line is never printed):
    assembly after the c_tot > 255 rescale, and the three rank kernels at
    the depths on both sides of every keys-per-lane step of the warp
    layout, with a batch size that fills no whole block, launched twice
-   for equal bits;
+   for equal bits; to depth 255 also the fused kernels ``glfgen32``,
+   ``glfgen`` and ``glfgen16`` (an accumulate and the assembly in one
+   launch) against ``assembly10_plain`` applied to the stand-alone
+   accumulate kernel's sums: lk, min_lk, rms and n equal, two launches
+   the same bits;
 4. the main path at a size users run: the port's CLI on a simulated
    10 Mb tumor/normal pair at 30x (windowed driver), fast precision on
    the card against exact precision (native host scoring) under the fast
-   contract, with the launch counters proving the run went through both
-   kernels;
+   contract, with the launch counters proving the run went through
+   ``glfgen32`` twice a slab and through no stand-alone kernel;
 5. fast precision on the card against the golden pair's expected VCF;
 6. the batch path with full-u32 batches (the no-reference route, with
    the reference's ref16 so sites emit) on the 10 Mb pair, whole-file,
-   against phase 4's exact output, through ``accumulate``;
+   against phase 4's exact output, through ``glfgen`` (``accumulate``
+   and ``assembly10`` only for batches deeper than 255);
 7. the port's CLI with the native library missing (pure-Python decode,
-   u16 batches through ``accumulate16``) on a 1 Mb pair at 30x, in a
+   u16 batches through ``glfgen16``) on a 1 Mb pair at 30x, in a
    child process, against the port's native exact output;
 8. each kernel against its plain version again at every (B, D) its path
    ran in phases 4, 6 and 7 (read from the runs' per-depth counters),
@@ -48,12 +56,14 @@ import sys
 sys.modules["jax"] = None  # any import of JAX from here on raises
 sys.modules["somatic_sniper_tpu"] = None  # and any of the JAX package
 
+import hashlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 from pathlib import Path  # noqa: E402
+from typing import Callable, NamedTuple  # noqa: E402
 
 REPO = Path(__file__).resolve().parent
 DATA = REPO / "chip_smoke_data"
@@ -80,16 +90,24 @@ PEAK_F32_FLOPS = 67e12
 ASSEMBLY_FLOPS_PER_COLUMN = 220
 SIM = dict(n_contigs=2, contig_len=5_000_000, mean_depth=30.0, seed=11)
 SIM_1MB = dict(n_contigs=1, contig_len=1_000_000, mean_depth=30.0, seed=12)
+CSRC = "somatic_sniper_tpu_torch/ops/csrc/"
+PALLAS = "somatic_sniper_tpu/ops/pallas_glfgen.py"
+# name: (source, the TPU kernel or kernels it replaces)
 KERNELS = {
-    "accumulate32": ("somatic_sniper_tpu_torch/ops/csrc/accumulate32.cu",
-                     "somatic_sniper_tpu/ops/pallas_glfgen.py:578"),
-    "assembly10": ("somatic_sniper_tpu_torch/ops/csrc/assembly10.cu",
-                   "somatic_sniper_tpu/ops/pallas_glfgen.py:526"),
-    "accumulate": ("somatic_sniper_tpu_torch/ops/csrc/accumulate.cu",
-                   "somatic_sniper_tpu/ops/pallas_glfgen.py:717"),
-    "accumulate16": ("somatic_sniper_tpu_torch/ops/csrc/accumulate16.cu",
-                     "somatic_sniper_tpu/ops/pallas_glfgen.py:652"),
+    "accumulate32": (CSRC + "accumulate32.cu", PALLAS + ":578"),
+    "assembly10": (CSRC + "assembly10.cu", PALLAS + ":526"),
+    "accumulate": (CSRC + "accumulate.cu", PALLAS + ":717"),
+    "accumulate16": (CSRC + "accumulate16.cu", PALLAS + ":652"),
+    # an accumulate and the assembly in one launch (depth <= 255)
+    "glfgen32": (CSRC + "accumulate32.cu", f"{PALLAS}:578 and {PALLAS}:526"),
+    "glfgen": (CSRC + "accumulate.cu", f"{PALLAS}:717 and {PALLAS}:526"),
+    "glfgen16": (CSRC + "accumulate16.cu", f"{PALLAS}:652 and {PALLAS}:526"),
 }
+# the fused kernel that runs a stand-alone kernel's code on each path
+FUSED_AS = {"accumulate32": "glfgen32", "assembly10": "glfgen32",
+            "accumulate": "glfgen", "accumulate16": "glfgen16"}
+# the empty kernel that measures the launch floor: (blocks, threads)
+FLOOR_GRID = (1024, 256)
 
 
 def phase(name: str) -> None:
@@ -195,22 +213,16 @@ def call_ms(fn, torch) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, torch) -> float | None:
-    """Device milliseconds per call: queued_ms where the calls never wait
-    for the device (the rank kernels' wrappers), else profiled_ms
-    (``assembly10`` reads its error word; the plain versions sync)."""
+def queued_ms(fn, torch) -> float | None:
+    """Device milliseconds per call.  A spin kernel holds the stream
+    while the host queues TIMED_RUNS calls; two CUDA events then time
+    them back to back on the device (launch gaps included), divided by
+    TIMED_RUNS; the median of TIMED_REPEATS.  None ("not measured") when
+    the timed calls started before the host had queued them all: a call
+    waited for the device, as the plain versions that read a value back
+    do (assembly10_plain checks its counts on the host)."""
     fn()
     torch.cuda.synchronize()
-    ms = queued_ms(fn, torch)
-    return ms if ms is not None else profiled_ms(fn, torch)
-
-
-def queued_ms(fn, torch) -> float | None:
-    """A spin kernel holds the stream while the host queues TIMED_RUNS
-    calls; two CUDA events then time them back to back on the device
-    (launch gaps included), divided by TIMED_RUNS; the median of
-    TIMED_REPEATS.  None when the timed calls started before the host had
-    queued them all: a call waited for the device."""
     t = time.perf_counter()
     for _ in range(TIMED_RUNS):
         fn()
@@ -235,33 +247,6 @@ def queued_ms(fn, torch) -> float | None:
         t1.synchronize()
         times.append(t0.elapsed_time(t1) / TIMED_RUNS)
     return statistics.median(times)
-
-
-def profiled_ms(fn, torch) -> float | None:
-    """Device milliseconds per call from torch.profiler: the self device
-    time of every kernel, copy and fill that TIMED_RUNS calls ran,
-    divided by TIMED_RUNS.  The profiler can drop events, so a profile
-    counts only when it holds TIMED_RUNS times the device events of one
-    profiled call (three tries); None when none does."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def run(n: int) -> tuple[int, float]:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-        return (sum(e.count for e in evs),
-                sum(e.self_device_time_total for e in evs))
-
-    per_call, _ = run(1)
-    for _ in range(3):
-        n, us = run(TIMED_RUNS)
-        if per_call and n == per_call * TIMED_RUNS and us > 0:
-            return us / TIMED_RUNS / 1e3
-    return None
 
 
 def fmt_ms(ms: float | None) -> str:
@@ -304,11 +289,64 @@ def rank_bound(lanes: int, lane_bytes: int, B: int, words_in: int,
                     + 1024, 3 * taken)
 
 
+def assembly_table_bytes(tables, B: int) -> int:
+    """Bytes of the assembly tables a batch of B columns can touch: ten
+    coef and six lhet reads a column, at most the whole tables."""
+    return min(4 * sum(t.numel() for t in tables), 64 * B)
+
+
+def assembly_bound(B: int, tables) -> tuple[float, str]:
+    """Bound of assembly10 on B columns: three [B, 4] arrays and n in,
+    lk[10], min_lk and the error word out, and the table entries the
+    gathers can touch."""
+    return bound_ms(4 * B * (13 + 11) + 4 + assembly_table_bytes(tables, B),
+                    ASSEMBLY_FLOPS_PER_COLUMN * B)
+
+
+def fused_bound(lanes: int, lane_bytes: int, B: int, words_in: int,
+                words_out: int, taken: int, tables) -> tuple[float, str]:
+    """Bound of a fused kernel on this batch: the rank's occupied lanes
+    and ``words_in`` words a column in, lk[10], min_lk and what else it
+    writes (``words_out`` words a column) out, the 1 KB weight table and
+    the table entries the gathers can touch; esum, fsum and c make no
+    round trip.  Operations: the rank's and the assembly's."""
+    return bound_ms(lanes * lane_bytes + 4 * B * (words_in + words_out)
+                    + 1024 + assembly_table_bytes(tables, B),
+                    3 * taken + ASSEMBLY_FLOPS_PER_COLUMN * B)
+
+
+class Case(NamedTuple):
+    """One kernel at one shape, checked against its plain version."""
+
+    err: float          # max abs error against the plain version
+    kernel: Callable    # the wrapper call a path makes
+    plain: Callable
+    bound: tuple[float, str]  # (bound_ms, bound_by)
+    # the same launch without the wrapper's wait for the device, where
+    # the wrapper has one: what the device time is taken from
+    launch: Callable | None = None
+
+
+def check_fused(name: str, got, again, want, shape, torch) -> None:
+    """A fused kernel's outputs, of two launches, against ``want``:
+    assembly10_plain on the stand-alone accumulate kernel's sums, then
+    that kernel's rms and n.  Every one must be equal."""
+    torch.cuda.synchronize()
+    if len(got) != len(want):
+        raise AssertionError(f"{name} returned {len(got)} arrays")
+    for what, a, a2, b in zip(("lk", "min_lk", "rms", "n"), got, again, want):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{name} {what} differs from the two-step result at {shape}")
+        if not torch.equal(a, a2):
+            raise AssertionError(f"two {name} launches differ at {shape}")
+
+
 def slab_cases(B: int, D: int, dtabs, dev, torch) -> dict:
     """accumulate32, then assembly10 on its sums, against their plain
     versions on random raw slab lanes at (B, D) (c, rms, lk and min_lk
-    equal).  Returns {name: (max_abs_err, kernel call, plain call,
-    (bound_ms, bound_by))}."""
+    equal), and glfgen32, the two in one launch, against the same lk,
+    min_lk and rms.  Returns {name: Case}."""
     from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
 
     s, nk, r = (torch.from_numpy(a).to(dev)
@@ -330,22 +368,28 @@ def slab_cases(B: int, D: int, dtabs, dev, torch) -> dict:
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(k, k2)):
         raise AssertionError(f"two accumulate32 launches differ at {(B, D)}")
+    tables = args[4:]
+
+    def fused():
+        return gk.glfgen32(s, nk, r, w, *tables, 60)
+
+    got = fused()
+    check_fused("glfgen32", got, fused(), (lk_p, mlk_p, k[3]), (B, D), torch)
     lanes = int(nk.clamp(max=D).sum())
     taken = int(k[2].sum())
-    # assembly10: three [B, 4] arrays and n in, lk[10], min_lk and the
-    # error word out; of the tables, the entries the gathers can touch
-    # (ten coef and six lhet reads a column), at most the whole tables
-    coef_sub, lhet_sub = args[4], args[5]
-    table_bytes = min(4 * (coef_sub.numel() + lhet_sub.numel()), 64 * B)
     return {
-        "accumulate32": (acc_err, lambda: gk.accumulate32(s, nk, r, w, 60),
-                         lambda: gk.accumulate32_plain(s, nk, r, w, 60),
-                         rank_bound(lanes, 4, B, 2, 13, taken)),
-        "assembly10": (float((lk - lk_p).abs().max()),
-                       lambda: gk.assembly10(*args),
-                       lambda: gk.assembly10_plain(*args),
-                       bound_ms(4 * B * (13 + 11) + 4 + table_bytes,
-                                ASSEMBLY_FLOPS_PER_COLUMN * B)),
+        "accumulate32": Case(acc_err, lambda: gk.accumulate32(s, nk, r, w, 60),
+                             lambda: gk.accumulate32_plain(s, nk, r, w, 60),
+                             rank_bound(lanes, 4, B, 2, 13, taken)),
+        "assembly10": Case(
+            float((lk - lk_p).abs().max()), lambda: gk.assembly10(*args),
+            lambda: gk.assembly10_plain(*args), assembly_bound(B, tables),
+            launch=lambda: gk.assembly10_launch(*args)),
+        # n_keep and ref16 in; lk[10], min_lk and rms out
+        "glfgen32": Case(
+            float((got[0] - lk_p).abs().max()), fused,
+            lambda: gk.glfgen32_plain(s, nk, r, w, *tables, 60),
+            fused_bound(lanes, 4, B, 2, 12, taken, tables)),
     }
 
 
@@ -355,8 +399,9 @@ def rank_cases(B: int, D: int, dtabs, dev, torch,
     (the same columns as u16 lanes) against their plain versions at
     (B, D): c, rms and n equal, the sums within check_sums; past D = 255
     also assembly10 after the c_tot > 255 rescale; a second launch of
-    each gives the same bits.  Returns {name: (max_abs_err, kernel call,
-    plain call, (bound_ms, bound_by))}."""
+    each gives the same bits.  To D = 255 also their fused kernels,
+    glfgen and glfgen16, against assembly10_plain on the stand-alone
+    kernel's sums (lk, min_lk, rms and n equal).  Returns {name: Case}."""
     from somatic_sniper_tpu_torch.models.glfgen import rescale_counts
     from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
 
@@ -387,11 +432,36 @@ def rank_cases(B: int, D: int, dtabs, dev, torch,
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(k, k2)):
             raise AssertionError(f"two accumulate launches differ at {(B, D)}")
-        cases["accumulate"] = (
+        lanes, taken = int(depth.clip(0, D).sum()), int(k[2].sum())
+        cases["accumulate"] = Case(
             err, lambda: gk.accumulate(s, dp, r, w, 60),
             lambda: gk.accumulate_plain(s, dp, r, w, 60),
-            rank_bound(int(depth.clip(0, D).sum()), 4, B, 2, 14,
-                       int(k[2].sum())))
+            rank_bound(lanes, 4, B, 2, 14, taken))
+        if D <= 255:
+            tables = dtabs.assembly_tables(D)
+
+            def fused():
+                return gk.glfgen_u32(s, dp, r, w, *tables, 60)
+
+            asm = (k[0], k[1], k[2], k[4], *tables)
+            lk_p, mlk_p = gk.assembly10_plain(*asm)
+            lk, mlk = gk.assembly10(*asm)
+            if not (torch.equal(lk, lk_p) and torch.equal(mlk, mlk_p)):
+                raise AssertionError(f"assembly10 lk/min_lk differ at {(B, D)}")
+            want = (lk_p, mlk_p, k[3], k[4])
+            got = fused()
+            check_fused("glfgen", got, fused(), want, (B, D), torch)
+            # what the second launch of the two-step route costs here
+            cases["assembly10"] = Case(
+                float((lk - lk_p).abs().max()), lambda: gk.assembly10(*asm),
+                lambda: gk.assembly10_plain(*asm),
+                assembly_bound(B, tables),
+                launch=lambda: gk.assembly10_launch(*asm))
+            # depth and ref16 in; lk[10], min_lk, rms and n out
+            cases["glfgen"] = Case(
+                float((got[0] - want[0]).abs().max()), fused,
+                lambda: gk.glfgen_u32_plain(s, dp, r, w, *tables, 60),
+                fused_bound(lanes, 4, B, 2, 13, taken, tables))
     if "accumulate16" in names:
         s16, nk = packed16_lanes(slots, depth, ref16)
         l16, n16 = (torch.from_numpy(a).to(dev) for a in (s16, nk))
@@ -405,27 +475,43 @@ def rank_cases(B: int, D: int, dtabs, dev, torch,
         if not all(torch.equal(a, b) for a, b in zip(k16, k16_2)):
             raise AssertionError(
                 f"two accumulate16 launches differ at {(B, D)}")
-        cases["accumulate16"] = (
+        lanes16, taken16 = int(nk.clip(0, D).sum()), int(k16[2].sum())
+        cases["accumulate16"] = Case(
             check_sums("accumulate16", k16, p16, (B, D), torch),
             lambda: gk.accumulate16(l16, n16, w),
             lambda: gk.accumulate16_plain(l16, n16, w),
-            rank_bound(int(nk.clip(0, D).sum()), 2, B, 1, 12,
-                       int(k16[2].sum())))
+            rank_bound(lanes16, 2, B, 1, 12, taken16))
+        if D <= 255:
+            tables16 = dtabs.assembly_tables(D)
+
+            def fused16():
+                return gk.glfgen16(l16, n16, w, *tables16)
+
+            want16 = gk.assembly10_plain(*k16, n16, *tables16)
+            got16 = fused16()
+            check_fused("glfgen16", got16, fused16(), want16, (B, D), torch)
+            # n_keep in; lk[10] and min_lk out
+            cases["glfgen16"] = Case(
+                float((got16[0] - want16[0]).abs().max()), fused16,
+                lambda: gk.glfgen16_plain(l16, n16, w, *tables16),
+                fused_bound(lanes16, 2, B, 1, 11, taken16, tables16))
     return cases
 
 
-def timed(name: str, shape, case, torch) -> tuple:
+def timed(name: str, shape, case: Case, torch, floor_ms: float) -> tuple:
     """(max_abs_err, ms, plain_ms, device_ms, plain_device_ms, bound_ms,
-    bound_by) of one case, printed.  A kernel that beats its bound shows
-    a fault of the count: that raises."""
-    err, kern, plain, (bound, by) = case
+    bound_by) of one case, printed beside the launch floor ``floor_ms``.
+    A kernel that beats its bound shows a fault of the count: that
+    raises."""
+    err, kern, plain, (bound, by), launch = case
     t = (err, call_ms(kern, torch), call_ms(plain, torch),
-         device_ms(kern, torch), device_ms(plain, torch), bound, by)
+         queued_ms(launch or kern, torch), queued_ms(plain, torch), bound, by)
     share = "" if t[3] is None else f" ({100 * bound / t[3]:.1f}% of it)"
     print(f"  {name:13s} B={shape[0]:5d} D={shape[1]:5d}  max_abs_err={err:.3g}"
           f"  per call: kernel {t[1]:.4f} ms, plain {t[2]:.4f} ms; "
           f"device: kernel {fmt_ms(t[3])}, plain {fmt_ms(t[4])}; "
-          f"bound {bound:.5f} ms by {by}{share}", flush=True)
+          f"bound {bound:.5f} ms by {by}{share}; launch floor "
+          f"{fmt_ms(floor_ms)}", flush=True)
     if bound > min(x for x in (t[1], t[3]) if x is not None):
         raise AssertionError(
             f"{name} at {shape} ran faster than its bound of {bound} ms: "
@@ -471,7 +557,8 @@ def path_shapes(stats: dict, prefix: str, B_of) -> list[tuple[int, int]]:
                                             key=lambda kv: -kv[1])]
 
 
-def kernels_at_path_shapes(shapes: dict, dtabs, dev, torch) -> dict:
+def kernels_at_path_shapes(shapes: dict, dtabs, dev, torch,
+                           floor_ms: float) -> dict:
     """Phase 8: every kernel against its plain version at every shape its
     path ran (random lanes), timed at the path's main shape (the first:
     the depth that carried the most columns).  ``shapes`` maps a family
@@ -479,6 +566,7 @@ def kernels_at_path_shapes(shapes: dict, dtabs, dev, torch) -> dict:
     (max_abs_err, ms, plain_ms, device_ms, plain_device_ms, bound_ms,
     bound_by) or (max_abs_err,)}."""
     family = {"slab": None, "u32": ("accumulate",), "u16": ("accumulate16",)}
+    # rank_cases adds a rank kernel's fused kernel to depth 255
     out = {}
     for fam, fam_shapes in shapes.items():
         for i, (B, D) in enumerate(fam_shapes):
@@ -486,11 +574,12 @@ def kernels_at_path_shapes(shapes: dict, dtabs, dev, torch) -> dict:
                      else rank_cases(B, D, dtabs, dev, torch, family[fam]))
             for name, case in cases.items():
                 if i == 0:
-                    out[name, (B, D)] = timed(name, (B, D), case, torch)
+                    out[name, (B, D)] = timed(name, (B, D), case, torch,
+                                              floor_ms)
                 else:
-                    out[name, (B, D)] = (case[0],)
+                    out[name, (B, D)] = (case.err,)
                     print(f"  {name:13s} B={B:5d} D={D:5d}  equal, "
-                          f"max_abs_err={case[0]:.3g}", flush=True)
+                          f"max_abs_err={case.err:.3g}", flush=True)
     return out
 
 
@@ -570,16 +659,35 @@ def u32_batches(pair: Path, n_cols: int, exact_lines: list[str], dev,
     wall = t_load + t_score
     print(f"  batches {batches}, device columns {dev_cols}, output lines "
           f"{len(lines)}", flush=True)
+    print_digest(lines)
     print(f"  wall {wall:.3f} s (load + prefilter {t_load:.3f} s, batches "
           f"{t_score:.3f} s), {n_cols / wall:.0f} cols/s of {n_cols}; "
           f"device columns {dev_cols / t_score:.0f} cols/s", flush=True)
     print(f"  launches {launches}", flush=True)
     print(f"  contract ok, hist {json.dumps(hist(tol), sort_keys=True)}",
           flush=True)
-    if launches["accumulate"] < 2 * batches or launches["accumulate"] == 0:
-        raise AssertionError(f"accumulate launched {launches['accumulate']} "
-                             f"times for {batches} batches")
+    check_batch_launches(launches, stats, "glfgen", "accumulate")
     return launches, stats
+
+
+def check_batch_launches(launches: dict, stats: dict, fused: str,
+                         two_step: str) -> None:
+    """A batch run's launch counts: two samples a batch; every batch to
+    depth 255 through the fused kernel alone, and the stand-alone
+    accumulate and assembly10 only for deeper batches (one each a
+    sample), so that no batch to depth 255 waits on an error word."""
+    batches = int(stats.get("batches_dispatched", 0))
+    deep = any(D > 255 for _, D in
+               path_shapes(stats, "batch_columns_at_depth_", lambda n: n))
+    others = {k: v for k, v in launches.items()
+              if v and k not in (fused, two_step, "assembly10")}
+    if (batches == 0 or others or launches[fused] == 0
+            or launches[fused] + launches[two_step] < 2 * batches
+            or launches["assembly10"] != launches[two_step]
+            or (launches[two_step] > 0) != deep):
+        raise AssertionError(
+            f"{batches} batches (deeper than 255 among them: {deep}) "
+            f"launched {launches}")
 
 
 NO_NATIVE_CHILD = """\
@@ -634,16 +742,14 @@ def cli_without_native(out_dir: Path, torch) -> tuple[dict, dict]:
     print(f"  columns {n_cols}, output lines {len(body_lines(out))}, "
           f"batches {int(stats.get('batches_dispatched', 0))}, device "
           f"columns {int(stats.get('device_columns', 0))}", flush=True)
+    print_digest(body_lines(out))
     print(f"  fast without native: wall {wall:.3f} s (child process, "
           f"decode {stats.get('decode', 0):.3f} s), {n_cols / wall:.0f} "
           f"cols/s; native exact wall {exact_wall:.3f} s", flush=True)
     print(f"  launches {launches}", flush=True)
     print(f"  contract ok, hist {json.dumps(hist(tol), sort_keys=True)}",
           flush=True)
-    if not (launches["accumulate16"] > 0 and launches["assembly10"] > 0
-            and launches["accumulate32"] == 0):
-        raise AssertionError(f"the no-native run did not take the u16 "
-                             f"batch path: {launches}")
+    check_batch_launches(launches, stats, "glfgen16", "accumulate16")
     return launches, stats
 
 
@@ -661,6 +767,13 @@ def run_cli(args: list[str]) -> float:
 def body_lines(path: Path) -> list[str]:
     return [ln for ln in path.read_text().splitlines()
             if not ln.startswith(("##fileDate", "##reference="))]
+
+
+def print_digest(lines: list[str]) -> None:
+    """The fast output's sha256, to hold two commits' smokes to each
+    other byte for byte."""
+    sha = hashlib.sha256("\n".join(lines).encode()).hexdigest()
+    print(f"  fast output: {len(lines)} lines, sha256 {sha}", flush=True)
 
 
 def main() -> int:
@@ -705,15 +818,26 @@ def main() -> int:
     build.load_library()
     print(f"  built {lib.name} in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    registers = build.resource_usage()
+    for kernel, use in sorted(registers.items()):
+        print(f"  {kernel}: {use['registers']} registers a thread, "
+              f"{use.get('spill_bytes', 0)} bytes spilled, "
+              f"{use['smem_bytes']} bytes of static shared memory",
+              flush=True)
+    floor_ms = queued_ms(lambda: gk.empty_launch(*FLOOR_GRID, dev), torch)
+    if floor_ms is None:
+        raise AssertionError("the empty kernel's launches waited")
+    print(f"  {card}: launch floor {floor_ms:.4f} ms (an empty kernel "
+          f"of {FLOOR_GRID[0]} blocks of {FLOOR_GRID[1]} threads, "
+          f"{TIMED_RUNS} queued back to back)", flush=True)
 
     phase("3 kernels against their plain versions on the card")
     dtabs = device_tables(build_tables(ModelParams()), dev)
     errs = {name: 0.0 for name in KERNELS}
-    fixed = {}  # (name, shape) -> timed() of phase 3
     for shapes, cases in ((SHAPES, slab_cases), (RANK_SHAPES, rank_cases)):
         for B, D in shapes:
             for name, case in cases(B, D, dtabs, dev, torch).items():
-                t = fixed[name, (B, D)] = timed(name, (B, D), case, torch)
+                t = timed(name, (B, D), case, torch, floor_ms)
                 errs[name] = max(errs[name], t[0])
     errs["accumulate"] = max(errs["accumulate"],
                              hazard_check(dtabs, dev, torch))
@@ -722,9 +846,9 @@ def main() -> int:
         if D <= 255:
             cases.update(slab_cases(EDGE_B, D, dtabs, dev, torch))
         for name, case in cases.items():
-            errs[name] = max(errs[name], case[0])
+            errs[name] = max(errs[name], case.err)
         print(f"  edge depth B={EDGE_B} D={D:3d}: " + ", ".join(
-            f"{name} equal (max_abs_err {case[0]:.3g})"
+            f"{name} equal (max_abs_err {case.err:.3g})"
             for name, case in cases.items()), flush=True)
 
     phase("4 main path: 10 Mb pair at 30x, fast on the card vs exact")
@@ -755,6 +879,7 @@ def main() -> int:
     depths = sorted(int(k.rsplit("_", 1)[1]) for k in stats
                     if k.startswith("slabs_at_depth_"))
     print(f"  columns {n_cols}, output lines {len(fast_lines)}", flush=True)
+    print_digest(fast_lines)
     for mode, ws in walls.items():
         print(f"  {mode:5s} wall " + ", ".join(
             f"{w:.3f} s ({n_cols / w:.0f} cols/s)" for w in ws), flush=True)
@@ -770,11 +895,11 @@ def main() -> int:
         raise AssertionError("no column was scored on the device")
     if int(stats.get("host_tail_columns", 0)) != 0:
         raise AssertionError("the run's end was scored on the host")
-    for name in ("accumulate32", "assembly10"):
-        n = launches[name]
-        if n < 2 * slabs or n == 0:
-            raise AssertionError(
-                f"{name} launched {n} times for {slabs} slabs")
+    # one fused launch a sample a slab, and no stand-alone kernel: no
+    # slab waits on assembly10's error word
+    if (slabs == 0 or launches["glfgen32"] != 2 * slabs
+            or launches["accumulate32"] or launches["assembly10"]):
+        raise AssertionError(f"{slabs} slabs launched {launches}")
     phase("5 golden pair, fast on the card")
     gold_out = out_dir / "golden_fast.vcf"
     run_cli(["--precision", "fast", "--device", "cuda", "-F", "vcf",
@@ -782,6 +907,7 @@ def main() -> int:
              str(GOLDEN / "n-small.bam"), str(gold_out)])
     gtol = diff_records(body_lines(gold_out),
                         body_lines(GOLDEN / "expected.vcf"), "vcf")
+    print_digest(body_lines(gold_out))
     print(f"  contract ok, hist {json.dumps(hist(gtol), sort_keys=True)}",
           flush=True)
 
@@ -803,7 +929,7 @@ def main() -> int:
                            lambda n: min(n, MAX_BATCH)),
     }
     print(f"  shapes, most-used first: {json.dumps(shapes)}", flush=True)
-    at_path = kernels_at_path_shapes(shapes, dtabs, dev, torch)
+    at_path = kernels_at_path_shapes(shapes, dtabs, dev, torch, floor_ms)
     for (name, _), t in at_path.items():
         errs[name] = max(errs[name], t[0])
 
@@ -814,21 +940,27 @@ def main() -> int:
         "assembly10": (launches, shapes["slab"][0]),
         "accumulate": (launches_u32, shapes["u32"][0]),
         "accumulate16": (launches_u16, shapes["u16"][0]),
+        "glfgen32": (launches, shapes["slab"][0]),
+        "glfgen": (launches_u32, shapes["u32"][0]),
+        "glfgen16": (launches_u16, shapes["u16"][0]),
     }
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         counts, shape = runs[name]
+        # a stand-alone kernel's code ran on its path inside the fused
+        # kernel named by fused_as: those launches are its launches, and
+        # its own entry's count is given beside them
+        fused_as = FUSED_AS.get(name)
+        extra = {} if fused_as is None else {
+            "fused_as": fused_as, "standalone_launches": counts[name]}
+        if fused_as is None:
+            extra["registers"] = {
+                k: v["registers"] for k, v in sorted(registers.items())
+                if k.startswith(f"{name}_kernel<")}
         _, ms, pms, dms, pdms, bound, by = at_path[name, shape]
-        # torch.profiler can come back empty this late in the process:
-        # a device time it lost is taken from phase 3 where that timed
-        # the same shape (same random lanes, same calls)
-        early = fixed.get((name, shape))
-        if early is not None:
-            dms = early[3] if dms is None else dms
-            pdms = early[4] if pdms is None else pdms
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces, "launches": counts[fused_as or name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
             "bound_ms": bound, "bound_by": by,
             # no one PyTorch call ranks reads within their classes or
@@ -836,12 +968,14 @@ def main() -> int:
             "library_ms": None,
             "device_ms": dms, "plain_device_ms": pdms,
             "bound_share_of_device_ms": None if dms is None else bound / dms,
-            "shape": list(shape),
+            "shape": list(shape), **extra,
         })
     print(f"  smoke wall {time.perf_counter() - t_start:.1f} s, set-up "
           "(both builds, the simulated pairs) included", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels,
+                      "launch_floor_ms": floor_ms,
+                      "launch_floor_grid": list(FLOOR_GRID)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

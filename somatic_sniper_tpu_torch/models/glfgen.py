@@ -1,17 +1,20 @@
 """Batched MAQ genotype likelihoods (glfgen), fast f32 precision.
 
 Port of the fast branch of somatic_sniper_tpu/models/glfgen.py
-(:53-85, :453-527, :528-586): an accumulate kernel (rank-weighted class
-sums) then ``assembly10`` (ten-genotype likelihoods), hand-written CUDA
-kernels on the card with plain torch versions on the CPU.  The
-accumulate follows the batch's slot encoding:
+(:53-85, :453-527, :528-586): an accumulate (rank-weighted class sums)
+then the assembly (ten-genotype likelihoods), hand-written CUDA kernels
+on the card with plain torch versions on the CPU.  The kernel follows
+the batch's slot encoding, and to depth 255 the two steps are one launch:
 
-* raw kept-only int32 lanes with ``n_keep`` -> ``accumulate32``;
-* compact u16 lanes with ``n_keep`` and ``rms_sum`` -> ``accumulate16``;
-* full u32 slot words with ``depth`` -> ``accumulate``.
+* raw kept-only int32 lanes with ``n_keep`` -> ``glfgen32``
+  (``accumulate32`` above depth 255, which no slab reaches);
+* compact u16 lanes with ``n_keep`` and ``rms_sum`` -> ``glfgen16``
+  (``accumulate16``);
+* full u32 slot words with ``depth`` -> ``glfgen_u32`` (``accumulate``).
 
-Batches deeper than 255 rescale their class counts first (reference
-sniper_maqcns.c:178-182) and assemble with the full tables.  The exact
+Batches deeper than 255 take the accumulate alone, rescale their class
+counts (reference sniper_maqcns.c:178-182) and run ``assembly10`` with
+the full tables.  The exact
 f64 glfgen is not part of this module: exact precision is scored by the
 native host layer.
 """
@@ -23,7 +26,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops.glfgen_kernels import (MAX_D, accumulate, accumulate16,
-                                  accumulate32, assembly10)
+                                  accumulate32, assembly10, glfgen16,
+                                  glfgen32, glfgen_u32)
 from .tables import DeviceTables
 
 F32 = torch.float32
@@ -91,26 +95,38 @@ def glfgen_batch(cols: ColumnBatch, dtabs: DeviceTables,
     D = cols.slots.shape[1]
     w = dtabs.fk_weights
     enc = cols.encoding
-    if enc == "raw32":
-        esum, fsum, c, rms = accumulate32(cols.slots, cols.n_keep,
-                                          cols.ref16, w, cap_mapq)
-        n = cols.n_keep
-    elif enc == "u16":
-        esum, fsum, c = accumulate16(cols.slots, cols.n_keep, w)
-        rms, n = cols.rms_sum, cols.n_keep
+    coef_sub, lhet_sub = dtabs.assembly_tables(D)
+    if D <= MAX_D:
+        # c_tot <= D <= 255: no rescale, and one launch does both steps
+        if enc == "raw32":
+            lk, min_lk, rms = glfgen32(cols.slots, cols.n_keep, cols.ref16,
+                                       w, coef_sub, lhet_sub, cap_mapq)
+            n = cols.n_keep
+        elif enc == "u16":
+            lk, min_lk = glfgen16(cols.slots, cols.n_keep, w, coef_sub,
+                                  lhet_sub)
+            rms, n = cols.rms_sum, cols.n_keep
+        else:
+            lk, min_lk, rms, n = glfgen_u32(cols.slots, cols.depth,
+                                            cols.ref16, w, coef_sub,
+                                            lhet_sub, cap_mapq)
     else:
-        esum, fsum, c, rms, n = accumulate(cols.slots, cols.depth,
-                                           cols.ref16, w, cap_mapq)
-    nz = n > 0
+        if enc == "raw32":
+            esum, fsum, c, rms = accumulate32(cols.slots, cols.n_keep,
+                                              cols.ref16, w, cap_mapq)
+            n = cols.n_keep
+        elif enc == "u16":
+            esum, fsum, c = accumulate16(cols.slots, cols.n_keep, w)
+            rms, n = cols.rms_sum, cols.n_keep
+        else:
+            esum, fsum, c, rms, n = accumulate(cols.slots, cols.depth,
+                                               cols.ref16, w, cap_mapq)
+        lk, min_lk = assembly10(esum, fsum, rescale_counts(c), n, coef_sub,
+                                lhet_sub)
     # rms mapQ (reference sniper_maqcns.c:176)
     rms_mapq = torch.floor(
         torch.sqrt(rms.to(F32) / n.clamp(min=1).to(F32)) + 0.499
     ).to(I32)
-    rms_mapq = torch.where(nz, rms_mapq, 0)
-    if D > MAX_D:
-        # c_tot <= D <= 255 needs no rescale; deeper columns may
-        c = rescale_counts(c)
-    coef_sub, lhet_sub = dtabs.assembly_tables(D)
-    lk, min_lk = assembly10(esum, fsum, c, n, coef_sub, lhet_sub)
+    rms_mapq = torch.where(n > 0, rms_mapq, 0)
     return GlfResult(lk=lk, min_lk=min_lk, depth=n.clamp(max=16777215),
                      rms_mapq=rms_mapq)

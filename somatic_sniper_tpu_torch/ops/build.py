@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -72,15 +73,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsniper_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands at once; raise on the first that fails."""
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; raise if any fails, else return what
+    each wrote to its standard error."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
-    failed = []
+    failed, errs = [], []
     try:
         for cmd, proc in zip(cmds, procs):
             _, err = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            errs.append(err)
             if proc.returncode != 0:
                 failed.append(f"nvcc failed (exit {proc.returncode}): "
                               f"{' '.join(cmd)}\n{err}")
@@ -91,6 +94,17 @@ def _run_all(cmds: list[list[str]]) -> None:
                 proc.wait()
     if failed:
         raise RuntimeError("\n".join(failed))
+    return errs
+
+
+def _compile(nvcc: str, tmp: Path,
+             extra: tuple[str, ...] = ()) -> tuple[list[Path], list[str]]:
+    """One nvcc per source, all started together, objects into ``tmp``;
+    returns (objects, each compiler's standard error)."""
+    objs = [tmp / f"{src.stem}.o" for src in sources()]
+    errs = _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(o), str(src)]
+                     for src, o in zip(sources(), objs)])
+    return objs, errs
 
 
 def build() -> Path:
@@ -104,9 +118,7 @@ def build() -> Path:
     # a concurrent process never loads a half-written one
     tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        objs = [tmp / f"{src.stem}.o" for src in sources()]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-                  for src, o in zip(sources(), objs)])
+        objs, _ = _compile(nvcc, tmp)
         lib = tmp / "lib.so"
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
                    *map(str, objs)]])
@@ -116,29 +128,92 @@ def build() -> Path:
     return out
 
 
+def _kernel_of(mangled: str) -> str | None:
+    """``name`` or ``name<N>`` of the ``*_kernel`` function a mangled
+    symbol names: the Itanium encoding writes an identifier as its
+    length, then its characters, and an int template argument N as
+    ``ILi<N>E``."""
+    for m in re.finditer(r"\d+", mangled):
+        for start in range(m.start(), m.end()):
+            n = int(mangled[start:m.end()])
+            name = mangled[m.end():m.end() + n]
+            if len(name) == n and name.endswith("_kernel") \
+                    and name.isidentifier():
+                arg = re.match(r"ILi(\d+)E", mangled[m.end() + n:])
+                return f"{name}<{arg[1]}>" if arg else name
+    return None
+
+
+def resource_usage() -> dict[str, dict[str, int]]:
+    """{kernel: {"registers", "spill_bytes", "smem_bytes"}} as
+    ``nvcc -Xptxas -v`` reports them with the build's flags; compiles
+    every source again (a few seconds), keeping nothing."""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        _, errs = _compile(nvcc, tmp, ("-Xptxas", "-v"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    usage: dict[str, dict[str, int]] = {}
+    kernel = None
+    for line in "\n".join(errs).splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            kernel = _kernel_of(m[1])
+        elif kernel and (m := re.search(r"(\d+) bytes spill stores", line)):
+            usage.setdefault(kernel, {})["spill_bytes"] = int(m[1])
+        elif kernel and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage.setdefault(kernel, {}).update(
+                registers=int(m[1]), smem_bytes=int(smem[1]) if smem else 0)
+    return usage
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# Every extern "C" function of csrc/, with its argument and result types
+# in the order of its C signature.  ctypes checks neither: a pointer bound
+# as an int is cut to 32 bits and a wrong count shifts every later
+# argument, so tests/test_torch_fused.py holds this table to the sources.
+SIGNATURES: dict[str, tuple[list, object]] = {
+    # slots, n_keep, ref16, weights, esum, fsum, c, rms, B, D, cap_mapq,
+    # stream
+    "sniper_accumulate32": ([_P] * 8 + [_I, _I, _I, _P], _I),
+    # slots, n_keep, ref16, weights, coef_sub, lhet_sub, lk, min_lk, rms,
+    # B, D, NK, cap_mapq, stream
+    "sniper_glfgen32": ([_P] * 9 + [_I, _I, _I, _I, _P], _I),
+    # esum, fsum, c, n, coef_sub, lhet_sub, lk, min_lk, err, B, NK, stream
+    "sniper_assembly10": ([_P] * 9 + [_I, _I, _P], _I),
+    # slots, depth, ref16, weights, esum, fsum, c, rms, n, scratch,
+    # scratch_ints, B, D, cap_mapq, stream
+    "sniper_accumulate": ([_P] * 10 + [_LL, _I, _I, _I, _P], _I),
+    # slots, depth, ref16, weights, coef_sub, lhet_sub, lk, min_lk, rms, n,
+    # B, D, NK, cap_mapq, stream
+    "sniper_glfgen": ([_P] * 10 + [_I, _I, _I, _I, _P], _I),
+    # slots16, n_keep, weights, esum, fsum, c, scratch, scratch_ints, B, D,
+    # stream
+    "sniper_accumulate16": ([_P] * 7 + [_LL, _I, _I, _P], _I),
+    # slots16, n_keep, weights, coef_sub, lhet_sub, lk, min_lk, B, D, NK,
+    # stream
+    "sniper_glfgen16": ([_P] * 7 + [_I, _I, _I, _P], _I),
+    # B, D
+    "sniper_rank_scratch_ints": ([_I, _I], _LL),
+    # blocks, threads, stream
+    "sniper_empty_launch": ([_I, _I, _P], _I),
+    # code
+    "sniper_cuda_error_string": ([_I], ctypes.c_char_p),
+}
+
+
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.sniper_accumulate32.argtypes = [p, p, p, p, p, p, p, p,
-                                                i, i, i, p]
-            lib.sniper_accumulate32.restype = i
-            lib.sniper_assembly10.argtypes = [p, p, p, p, p, p, p, p, p,
-                                              i, i, p]
-            lib.sniper_assembly10.restype = i
-            ll = ctypes.c_longlong
-            lib.sniper_accumulate.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                              ll, i, i, i, p]
-            lib.sniper_accumulate.restype = i
-            lib.sniper_accumulate16.argtypes = [p, p, p, p, p, p, p, ll,
-                                                i, i, p]
-            lib.sniper_accumulate16.restype = i
-            lib.sniper_rank_scratch_ints.argtypes = [i, i]
-            lib.sniper_rank_scratch_ints.restype = ll
-            lib.sniper_cuda_error_string.argtypes = [i]
-            lib.sniper_cuda_error_string.restype = ctypes.c_char_p
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
             _lib = lib
         return _lib

@@ -53,9 +53,20 @@
 // its 128-lane padding existed for the TPU's lane width and are not
 // carried over; every depth the batch path produces runs here, with no
 // fallback.
+//
+// The fused entry, sniper_glfgen (what the full-u32 batch path launches
+// for D <= 255): the warp layout's rank, then the ten-genotype assembly of
+// assembly10.cuh on the sums while they are still in the warp's registers.
+// It replaces both accumulate / _kernel and assembly10 / _kernel_asm of
+// pallas_glfgen.py there: esum, fsum and c are never written, a sample of
+// a batch is one launch, and since c_tot <= D <= NK - 1 there is no error
+// word to wait for.  Deeper batches keep the two launches, with the
+// c_tot > 255 rescale between them.  A separate kernel: the unfused one
+// keeps its registers.
 
 #include <cuda_runtime.h>
 
+#include "assembly10.cuh"
 #include "class_rank.cuh"
 
 namespace {
@@ -100,6 +111,26 @@ accumulate_kernel(const int* __restrict__ slots, const int* __restrict__ depth,
   }
 }
 
+template <int kP>
+__global__ void __launch_bounds__(kWarpThreads) glfgen_kernel(
+    const int* __restrict__ slots, const int* __restrict__ depth,
+    const int* __restrict__ ref16, const float* __restrict__ weights,
+    const float* __restrict__ coef_sub, const float* __restrict__ lhet_sub,
+    int* __restrict__ lk, int* __restrict__ min_lk, int* __restrict__ rms_out,
+    int* __restrict__ n_out, int B, int D, int NK, bool wide, int cap_mapq) {
+  const int col = warp_column(B);
+  if (col < 0) return;
+  const WarpSlotSums s = warp_slot_sums<true, kP>(
+      slots + (size_t)col * D, min(depth[col], D), ref16[col], weights, wide,
+      cap_mapq);
+  if ((threadIdx.x & 31) == 0) {
+    rms_out[col] = s.rms;
+    n_out[col] = s.n;
+  }
+  assembly10::warp_sums_assembly10(s.cls.ef, s.cls.c, s.n > 0, col, coef_sub,
+                                   lhet_sub, NK, lk, min_lk);
+}
+
 }  // namespace
 
 // Global scratch ints the wrapper must pass for a [B, D] batch (0 when
@@ -136,5 +167,37 @@ extern "C" int sniper_accumulate(const void* slots, const void* depth,
                   l.scratch_ints > 0 ? static_cast<int*>(scratch) : nullptr,
                   B, D, l.P, l.cols,
                   rows_take_wide_loads<int, kRegs>(slots, D), cap_mapq);
+  });
+}
+
+// accumulate and assembly10 in one launch: D <= 255 and tables of depth
+// NK - 1 >= D.
+extern "C" int sniper_glfgen(const void* slots, const void* depth,
+                             const void* ref16, const void* weights,
+                             const void* coef_sub, const void* lhet_sub,
+                             void* lk, void* min_lk, void* rms, void* n,
+                             int B, int D, int NK, int cap_mapq,
+                             void* stream) {
+  if (B <= 0 || D <= 0 || D > 255 || NK <= D || NK > 256) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Layout l = layout_for(D);
+  return with_kp(l, [&](auto kp) {
+    constexpr int kP = decltype(kp)::value;
+    if constexpr (kP == 0) {
+      return (int)cudaErrorInvalidValue;  // D <= 255 never gets here
+    } else {
+      return launch(glfgen_kernel<kP>, l, B,
+                    static_cast<cudaStream_t>(stream),
+                    static_cast<const int*>(slots),
+                    static_cast<const int*>(depth),
+                    static_cast<const int*>(ref16),
+                    static_cast<const float*>(weights),
+                    static_cast<const float*>(coef_sub),
+                    static_cast<const float*>(lhet_sub),
+                    static_cast<int*>(lk), static_cast<int*>(min_lk),
+                    static_cast<int*>(rms), static_cast<int*>(n), B, D, NK,
+                    rows_take_wide_loads<int, kP / 32>(slots, D), cap_mapq);
+    }
   });
 }

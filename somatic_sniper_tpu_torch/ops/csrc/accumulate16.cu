@@ -37,9 +37,19 @@
 // of several columns into one 128-lane row and its rotation loop existed
 // for the TPU's lane width; every depth the batch path produces runs
 // here, with no fallback (the TPU kernel could not pad past 128).
+//
+// The fused entry, sniper_glfgen16 (what the u16 batch path launches for
+// D <= 255): the warp layout's rank, then the ten-genotype assembly of
+// assembly10.cuh on the sums while they are still in the warp's registers.
+// It replaces both accumulate16 / _kernel16 and assembly10 / _kernel_asm
+// of pallas_glfgen.py there: esum, fsum and c are never written, a sample
+// of a batch is one launch, and since c_tot <= D <= NK - 1 there is no
+// error word to wait for.  A separate kernel: the unfused one keeps its
+// registers.
 
 #include <cuda_runtime.h>
 
+#include "assembly10.cuh"
 #include "class_rank.cuh"
 
 namespace {
@@ -61,6 +71,39 @@ struct LaneKeyEff {
   __device__ int operator()(int key) const { return 255 - (key & 0xFF); }
 };
 
+// Warp layout: the class sums of the warp's column, nk of its lanes
+// occupied.
+template <int kP>
+__device__ inline WarpClassSums warp_lane_sums(
+    const unsigned short* __restrict__ row, int nk,
+    const float* __restrict__ weights, bool wide) {
+  constexpr int K = kP / 32;
+  unsigned short v[K];
+  int pos[K], key[K];
+  load_row<unsigned short, K>(row, nk, wide, v, pos);
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    key[q] = pos[q] < nk ? lane_key(v[q]) : kTailKey;
+  }
+  return warp_rank_sums<kShift16, kP>(key, weights, LaneKeyEff{});
+}
+
+template <int kP>
+__global__ void __launch_bounds__(kWarpThreads) glfgen16_kernel(
+    const unsigned short* __restrict__ slots16,
+    const int* __restrict__ n_keep, const float* __restrict__ weights,
+    const float* __restrict__ coef_sub, const float* __restrict__ lhet_sub,
+    int* __restrict__ lk, int* __restrict__ min_lk, int B, int D, int NK,
+    bool wide) {
+  const int col = warp_column(B);
+  if (col < 0) return;
+  const int nk = n_keep[col];
+  const WarpClassSums s = warp_lane_sums<kP>(slots16 + (size_t)col * D,
+                                             min(nk, D), weights, wide);
+  assembly10::warp_sums_assembly10(s.ef, s.c, nk > 0, col, coef_sub, lhet_sub,
+                                   NK, lk, min_lk);
+}
+
 template <int kP>
 __global__ void __launch_bounds__(kP > 0 ? kWarpThreads : kBigThreads,
                                   kP > 0 ? 1 : kBigBlocksPerSM)
@@ -71,19 +114,10 @@ accumulate16_kernel(const unsigned short* __restrict__ slots16,
                     int* __restrict__ c_out, int* scratch, int B, int D,
                     int P, int cols, bool wide) {
   if constexpr (kP > 0) {
-    constexpr int K = kP / 32;
     const int col = warp_column(B);
     if (col < 0) return;
-    const int nk = min(n_keep[col], D);
-    unsigned short v[K];
-    int pos[K], key[K];
-    load_row<unsigned short, K>(slots16 + (size_t)col * D, nk, wide, v, pos);
-#pragma unroll
-    for (int q = 0; q < K; ++q) {
-      key[q] = pos[q] < nk ? lane_key(v[q]) : kTailKey;
-    }
-    const WarpClassSums s =
-        warp_rank_sums<kShift16, kP>(key, weights, LaneKeyEff{});
+    const WarpClassSums s = warp_lane_sums<kP>(
+        slots16 + (size_t)col * D, min(n_keep[col], D), weights, wide);
     warp_store_class_sums(s, col, esum, fsum, c_out);
   } else {
     extern __shared__ int smem_keys[];
@@ -142,5 +176,34 @@ extern "C" int sniper_accumulate16(const void* slots16, const void* n_keep,
                   l.scratch_ints > 0 ? static_cast<int*>(scratch) : nullptr,
                   B, D, l.P, l.cols,
                   rows_take_wide_loads<unsigned short, kRegs>(slots16, D));
+  });
+}
+
+// accumulate16 and assembly10 in one launch: D <= 255 and tables of depth
+// NK - 1 >= D.
+extern "C" int sniper_glfgen16(const void* slots16, const void* n_keep,
+                               const void* weights, const void* coef_sub,
+                               const void* lhet_sub, void* lk, void* min_lk,
+                               int B, int D, int NK, void* stream) {
+  if (B <= 0 || D <= 0 || D > 255 || NK <= D || NK > 256) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Layout l = layout_for(D);
+  return with_kp(l, [&](auto kp) {
+    constexpr int kP = decltype(kp)::value;
+    if constexpr (kP == 0) {
+      return (int)cudaErrorInvalidValue;  // D <= 255 never gets here
+    } else {
+      return launch(glfgen16_kernel<kP>, l, B,
+                    static_cast<cudaStream_t>(stream),
+                    static_cast<const unsigned short*>(slots16),
+                    static_cast<const int*>(n_keep),
+                    static_cast<const float*>(weights),
+                    static_cast<const float*>(coef_sub),
+                    static_cast<const float*>(lhet_sub),
+                    static_cast<int*>(lk), static_cast<int*>(min_lk), B, D,
+                    NK,
+                    rows_take_wide_loads<unsigned short, kP / 32>(slots16, D));
+    }
   });
 }

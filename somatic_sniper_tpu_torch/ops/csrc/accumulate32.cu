@@ -28,9 +28,21 @@
 // version's 128-lane segment packing, roll-based bitonic network and
 // prefix-max class start existed only for the TPU's lane width and are
 // not carried over.
+//
+// The fused entry, sniper_glfgen32 (what the slab path launches): the same
+// rank, then the ten-genotype assembly of assembly10.cuh on the sums while
+// they are still in the warp's registers (the lower 16 lanes, a lane a
+// genotype).  It replaces both accumulate32 / _kernel32 and assembly10 /
+// _kernel_asm of pallas_glfgen.py for D <= 255: esum, fsum and c (12
+// words a column) are never written, and a sample of a slab is one launch
+// instead of two.  The counts come from at most D <= NK - 1 lanes, so
+// they index inside the tables by construction and there is no error
+// word to wait for.  A separate kernel: the unfused one keeps its
+// registers.
 
 #include <cuda_runtime.h>
 
+#include "assembly10.cuh"
 #include "class_rank.cuh"
 
 namespace {
@@ -51,6 +63,24 @@ __global__ void __launch_bounds__(kWarpThreads) accumulate32_kernel(
       cap_mapq);
   warp_store_class_sums(s.cls, col, esum, fsum, c_out);
   if ((threadIdx.x & 31) == 0) rms_out[col] = s.rms;
+}
+
+template <int kP>
+__global__ void __launch_bounds__(kWarpThreads) glfgen32_kernel(
+    const int* __restrict__ slots, const int* __restrict__ n_keep,
+    const int* __restrict__ ref16, const float* __restrict__ weights,
+    const float* __restrict__ coef_sub, const float* __restrict__ lhet_sub,
+    int* __restrict__ lk, int* __restrict__ min_lk, int* __restrict__ rms_out,
+    int B, int D, int NK, bool wide, int cap_mapq) {
+  const int col = warp_column(B);
+  if (col < 0) return;
+  const int nk = n_keep[col];
+  const WarpSlotSums s = warp_slot_sums<false, kP>(
+      slots + (size_t)col * D, min(nk, D), ref16[col], weights, wide,
+      cap_mapq);
+  if ((threadIdx.x & 31) == 0) rms_out[col] = s.rms;
+  assembly10::warp_sums_assembly10(s.cls.ef, s.cls.c, nk > 0, col, coef_sub,
+                                   lhet_sub, NK, lk, min_lk);
 }
 
 }  // namespace
@@ -75,6 +105,37 @@ extern "C" int sniper_accumulate32(const void* slots, const void* n_keep,
                     static_cast<const float*>(weights),
                     static_cast<float*>(esum), static_cast<float*>(fsum),
                     static_cast<int*>(c), static_cast<int*>(rms), B, D,
+                    rows_take_wide_loads<int, kP / 32>(slots, D), cap_mapq);
+    }
+  });
+}
+
+// accumulate32 and assembly10 in one launch: D <= 255 and tables of depth
+// NK - 1 >= D.
+extern "C" int sniper_glfgen32(const void* slots, const void* n_keep,
+                               const void* ref16, const void* weights,
+                               const void* coef_sub, const void* lhet_sub,
+                               void* lk, void* min_lk, void* rms, int B,
+                               int D, int NK, int cap_mapq, void* stream) {
+  if (B <= 0 || D <= 0 || D > 255 || NK <= D || NK > 256) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Layout l = layout_for(D);
+  return with_kp(l, [&](auto kp) {
+    constexpr int kP = decltype(kp)::value;
+    if constexpr (kP == 0) {
+      return (int)cudaErrorInvalidValue;  // D <= 255 never gets here
+    } else {
+      return launch(glfgen32_kernel<kP>, l, B,
+                    static_cast<cudaStream_t>(stream),
+                    static_cast<const int*>(slots),
+                    static_cast<const int*>(n_keep),
+                    static_cast<const int*>(ref16),
+                    static_cast<const float*>(weights),
+                    static_cast<const float*>(coef_sub),
+                    static_cast<const float*>(lhet_sub),
+                    static_cast<int*>(lk), static_cast<int*>(min_lk),
+                    static_cast<int*>(rms), B, D, NK,
                     rows_take_wide_loads<int, kP / 32>(slots, D), cap_mapq);
     }
   });

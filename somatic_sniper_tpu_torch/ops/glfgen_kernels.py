@@ -5,7 +5,12 @@ launch counters.
 replace the Pallas kernels of the same names in
 somatic_sniper_tpu/ops/pallas_glfgen.py (sources in ``csrc/``).  The
 three accumulates read the same 256-entry f32 weight table
-(models.tables.fk_weights_f32).  Each wrapper checks its inputs, then
+(models.tables.fk_weights_f32).  ``glfgen32``, ``glfgen_u32`` and
+``glfgen16`` are an accumulate and the assembly in one launch, for
+batches no deeper than 255: the class sums go from the rank to the
+assembly in registers, and no error word is read (the counts index
+inside the tables by construction).  Each wrapper checks its inputs,
+then
 
 * for tensors on the CPU, runs the plain torch version;
 * for CUDA tensors, launches the kernel on the current stream and
@@ -35,7 +40,7 @@ MAX_C_TOT = 256
 # kernel launches since the last reset_launches(); a wrapper adds one
 # only where it launches its CUDA kernel
 LAUNCHES = {"accumulate32": 0, "accumulate": 0, "accumulate16": 0,
-            "assembly10": 0}
+            "assembly10": 0, "glfgen32": 0, "glfgen": 0, "glfgen16": 0}
 
 _NEG_PHRED = torch.tensor(-4.343, dtype=F32)
 _BIG = torch.tensor(1e30, dtype=F32)
@@ -433,6 +438,58 @@ def assembly10_plain(esum, fsum, c, n, coef_sub, lhet_sub):
     return lk, min_lk
 
 
+def _check_assembly_tables(coef_sub, lhet_sub, dev) -> int:
+    """NK of the assembly tables ``coef[4:64, :NK, :NK]`` and
+    ``lhet[:NK, :NK]``, checked."""
+    if not isinstance(coef_sub, torch.Tensor) or coef_sub.dim() != 3:
+        raise ValueError("coef_sub: expected [60, NK, NK]")
+    NK = coef_sub.shape[1]
+    if not 1 <= NK <= MAX_D + 1:
+        raise ValueError(
+            f"table depth NK={NK} outside [1, {MAX_D + 1}]: deeper "
+            "batches take the c_tot > 255 rescale and NK = 256")
+    _check("coef_sub", coef_sub, F32, (60, NK, NK), dev)
+    _check("lhet_sub", lhet_sub, F32, (NK, NK), dev)
+    return NK
+
+
+def _check_assembly_inputs(esum, fsum, c, n, coef_sub, lhet_sub):
+    """(B, NK, device) of an assembly call, its six tensors checked."""
+    if not isinstance(esum, torch.Tensor) or esum.dim() != 2:
+        raise ValueError("esum: expected [B, 4]")
+    B = esum.shape[0]
+    dev = esum.device
+    NK = _check_assembly_tables(coef_sub, lhet_sub, dev)
+    _check("esum", esum, F32, (B, 4), dev)
+    _check("fsum", fsum, F32, (B, 4), dev)
+    _check("c", c, I32, (B, 4), dev)
+    _check("n", n, I32, (B,), dev)
+    return B, NK, dev
+
+
+def assembly10_launch(esum, fsum, c, n, coef_sub, lhet_sub):
+    """``assembly10`` on CUDA tensors without the wait: launches the
+    kernel and returns (lk, min_lk, err), ``err`` an i32[1] on the card
+    that the kernel sets to 1 if any column's counts would index past
+    the tables (such a column reads no table and gets zeros).  The
+    caller reads ``err`` when it next waits for the device."""
+    B, NK, dev = _check_assembly_inputs(esum, fsum, c, n, coef_sub, lhet_sub)
+    if dev.type != "cuda":
+        raise ValueError(f"assembly10: no kernel for device {dev}")
+    lk = torch.empty((B, 10), dtype=I32, device=dev)
+    min_lk = torch.empty((B,), dtype=I32, device=dev)
+    with torch.cuda.device(dev):
+        err = torch.zeros(1, dtype=I32, device=dev)
+        if B == 0:
+            return lk, min_lk, err
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch("sniper_assembly10", _ptr(esum), _ptr(fsum), _ptr(c),
+                _ptr(n), _ptr(coef_sub), _ptr(lhet_sub), _ptr(lk),
+                _ptr(min_lk), _ptr(err), B, NK, stream)
+    LAUNCHES["assembly10"] += 1
+    return lk, min_lk, err
+
+
 def assembly10(esum, fsum, c, n, coef_sub, lhet_sub):
     """The ten-genotype likelihood assembly.
 
@@ -443,43 +500,154 @@ def assembly10(esum, fsum, c, n, coef_sub, lhet_sub):
     index inside the tables; c_tot = 256 reads row 255.  Counts outside
     that (a negative class count, or a total past the table) raise
     ValueError on either device; on the card the kernel flags them and
-    the wrapper waits for the flag.  Returns (lk i32[B,10],
-    min_lk i32[B]), bit-identical to the plain version on the same
-    inputs."""
-    if esum.dim() != 2:
-        raise ValueError(f"esum: expected [B, 4], got {tuple(esum.shape)}")
-    B = esum.shape[0]
-    dev = esum.device
-    if coef_sub.dim() != 3:
-        raise ValueError("coef_sub: expected [60, NK, NK]")
-    NK = coef_sub.shape[1]
-    if not 1 <= NK <= MAX_D + 1:
-        raise ValueError(
-            f"table depth NK={NK} outside [1, {MAX_D + 1}]: deeper "
-            "batches take the c_tot > 255 rescale and NK = 256")
-    _check("esum", esum, F32, (B, 4), dev)
-    _check("fsum", fsum, F32, (B, 4), dev)
-    _check("c", c, I32, (B, 4), dev)
-    _check("n", n, I32, (B,), dev)
-    _check("coef_sub", coef_sub, F32, (60, NK, NK), dev)
-    _check("lhet_sub", lhet_sub, F32, (NK, NK), dev)
-    if dev.type == "cpu":
+    this wrapper waits for the flag (``assembly10_launch`` is the same
+    launch without the wait).  Returns (lk i32[B,10], min_lk i32[B]),
+    bit-identical to the plain version on the same inputs."""
+    if isinstance(esum, torch.Tensor) and esum.device.type == "cpu":
+        _check_assembly_inputs(esum, fsum, c, n, coef_sub, lhet_sub)
         return assembly10_plain(esum, fsum, c, n, coef_sub, lhet_sub)
-    if dev.type != "cuda":
-        raise ValueError(f"assembly10: unsupported device {dev}")
+    lk, min_lk, err = assembly10_launch(esum, fsum, c, n, coef_sub, lhet_sub)
+    # reading the flag waits for the kernel
+    if int(err.item()):
+        raise ValueError(_count_error(coef_sub.shape[1]))
+    return lk, min_lk
+
+
+# -- an accumulate and the assembly in one launch (D <= 255) -------------------
+
+def _check_fused(name: str, slots, dtype, coef_sub, lhet_sub):
+    """(B, D, NK, device) of a fused call: [B, D] lanes of ``dtype`` with
+    1 <= D <= 255, and assembly tables of depth NK - 1 >= D, so that the
+    class totals (<= D) index inside them."""
+    if not isinstance(slots, torch.Tensor) or slots.dim() != 2:
+        raise ValueError(f"{name}: expected [B, D] lanes")
+    B, D = slots.shape
+    dev = slots.device
+    if not 1 <= D <= MAX_D:
+        raise ValueError(
+            f"{name}: depth D={D} outside [1, {MAX_D}]: deeper batches "
+            "take the accumulate, the c_tot > 255 rescale and assembly10")
+    _check("slots", slots, dtype, (B, D), dev)
+    NK = _check_assembly_tables(coef_sub, lhet_sub, dev)
+    if NK <= D:
+        raise ValueError(f"{name}: tables of depth {NK - 1} for a batch of "
+                         f"depth {D}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return B, D, NK, dev
+
+
+def glfgen32_plain(slots, n_keep, ref16, weights, coef_sub, lhet_sub,
+                   cap_mapq: int):
+    """(lk, min_lk, rms): accumulate32_plain, then assembly10_plain."""
+    esum, fsum, c, rms = accumulate32_plain(slots, n_keep, ref16, weights,
+                                            cap_mapq)
+    lk, min_lk = assembly10_plain(esum, fsum, c, n_keep, coef_sub, lhet_sub)
+    return lk, min_lk, rms
+
+
+def glfgen32(slots, n_keep, ref16, weights, coef_sub, lhet_sub,
+             cap_mapq: int):
+    """``accumulate32`` and ``assembly10`` in one launch, over raw
+    kept-only slab lanes (inputs as ``accumulate32``, tables as
+    ``assembly10`` with NK > D).  Returns (lk i32[B,10], min_lk i32[B],
+    rms i32[B]); a column is empty where ``n_keep`` is 0."""
+    B, D, NK, dev = _check_fused("glfgen32", slots, I32, coef_sub, lhet_sub)
+    _check("n_keep", n_keep, I32, (B,), dev)
+    _check("ref16", ref16, I32, (B,), dev)
+    _check("weights", weights, F32, (MAX_W + 1,), dev)
+    if dev.type == "cpu":
+        return glfgen32_plain(slots, n_keep, ref16, weights, coef_sub,
+                              lhet_sub, cap_mapq)
+    lk = torch.empty((B, 10), dtype=I32, device=dev)
+    min_lk = torch.empty((B,), dtype=I32, device=dev)
+    rms = torch.empty((B,), dtype=I32, device=dev)
+    if B == 0:
+        return lk, min_lk, rms
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch("sniper_glfgen32", _ptr(slots), _ptr(n_keep), _ptr(ref16),
+                _ptr(weights), _ptr(coef_sub), _ptr(lhet_sub), _ptr(lk),
+                _ptr(min_lk), _ptr(rms), B, D, NK, int(cap_mapq), stream)
+    LAUNCHES["glfgen32"] += 1
+    return lk, min_lk, rms
+
+
+def glfgen_u32_plain(slots, depth, ref16, weights, coef_sub, lhet_sub,
+                     cap_mapq: int):
+    """(lk, min_lk, rms, n): accumulate_plain, then assembly10_plain."""
+    esum, fsum, c, rms, n = accumulate_plain(slots, depth, ref16, weights,
+                                             cap_mapq)
+    lk, min_lk = assembly10_plain(esum, fsum, c, n, coef_sub, lhet_sub)
+    return lk, min_lk, rms, n
+
+
+def glfgen_u32(slots, depth, ref16, weights, coef_sub, lhet_sub,
+               cap_mapq: int):
+    """``accumulate`` and ``assembly10`` in one launch, over full u32
+    slot words that still hold deletions (inputs as ``accumulate`` with
+    D <= 255, tables as ``assembly10`` with NK > D).  Returns
+    (lk i32[B,10], min_lk i32[B], rms i32[B], n i32[B]); a column is
+    empty where n, its count of non-deleted lanes, is 0."""
+    B, D, NK, dev = _check_fused("glfgen_u32", slots, I32, coef_sub,
+                                 lhet_sub)
+    _check("depth", depth, I32, (B,), dev)
+    _check("ref16", ref16, I32, (B,), dev)
+    _check("weights", weights, F32, (MAX_W + 1,), dev)
+    if dev.type == "cpu":
+        return glfgen_u32_plain(slots, depth, ref16, weights, coef_sub,
+                                lhet_sub, cap_mapq)
+    lk = torch.empty((B, 10), dtype=I32, device=dev)
+    min_lk = torch.empty((B,), dtype=I32, device=dev)
+    rms = torch.empty((B,), dtype=I32, device=dev)
+    n = torch.empty((B,), dtype=I32, device=dev)
+    if B == 0:
+        return lk, min_lk, rms, n
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch("sniper_glfgen", _ptr(slots), _ptr(depth), _ptr(ref16),
+                _ptr(weights), _ptr(coef_sub), _ptr(lhet_sub), _ptr(lk),
+                _ptr(min_lk), _ptr(rms), _ptr(n), B, D, NK, int(cap_mapq),
+                stream)
+    LAUNCHES["glfgen"] += 1
+    return lk, min_lk, rms, n
+
+
+def glfgen16_plain(slots16, n_keep, weights, coef_sub, lhet_sub):
+    """(lk, min_lk): accumulate16_plain, then assembly10_plain."""
+    esum, fsum, c = accumulate16_plain(slots16, n_keep, weights)
+    return assembly10_plain(esum, fsum, c, n_keep, coef_sub, lhet_sub)
+
+
+def glfgen16(slots16, n_keep, weights, coef_sub, lhet_sub):
+    """``accumulate16`` and ``assembly10`` in one launch, over compact
+    u16 lanes (inputs as ``accumulate16`` with D <= 255, tables as
+    ``assembly10`` with NK > D).  Returns (lk i32[B,10],
+    min_lk i32[B]); a column is empty where ``n_keep`` is 0."""
+    B, D, NK, dev = _check_fused("glfgen16", slots16, U16, coef_sub,
+                                 lhet_sub)
+    _check("n_keep", n_keep, I32, (B,), dev)
+    _check("weights", weights, F32, (MAX_W + 1,), dev)
+    if dev.type == "cpu":
+        return glfgen16_plain(slots16, n_keep, weights, coef_sub, lhet_sub)
     lk = torch.empty((B, 10), dtype=I32, device=dev)
     min_lk = torch.empty((B,), dtype=I32, device=dev)
     if B == 0:
         return lk, min_lk
     with torch.cuda.device(dev):
-        err = torch.zeros(1, dtype=I32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("sniper_assembly10", _ptr(esum), _ptr(fsum), _ptr(c),
-                _ptr(n), _ptr(coef_sub), _ptr(lhet_sub), _ptr(lk),
-                _ptr(min_lk), _ptr(err), B, NK, stream)
-        LAUNCHES["assembly10"] += 1
-        # the kernel flags columns whose counts would index past the
-        # tables (reading the flag waits for the kernel)
-        if int(err.item()):
-            raise ValueError(_count_error(NK))
+        _launch("sniper_glfgen16", _ptr(slots16), _ptr(n_keep),
+                _ptr(weights), _ptr(coef_sub), _ptr(lhet_sub), _ptr(lk),
+                _ptr(min_lk), B, D, NK, stream)
+    LAUNCHES["glfgen16"] += 1
     return lk, min_lk
+
+
+def empty_launch(blocks: int, threads: int, dev) -> None:
+    """Launches csrc/launch_floor.cu's empty kernel on the current stream
+    of the CUDA device ``dev``: what a launch of that grid costs with no
+    work in it.  For measurement; no path calls it and it is not counted
+    in LAUNCHES."""
+    with torch.cuda.device(dev):
+        _launch("sniper_empty_launch", int(blocks), int(threads),
+                torch.cuda.current_stream(dev).cuda_stream)

@@ -370,8 +370,8 @@ def submit_batches(pu_t, pu_n, refcache, dtabs, device, drop_t, drop_n,
     """Score every paired batch on the device (runner.py:399-418);
     returns the pending list for collect_pending, which fetches the
     rows.  Only counts and rows wait for the device: the kernels queue
-    on its stream, but each assembly10 call reads its error word, so a
-    batch's scoring ends inside its submit."""
+    on its stream.  (A batch deeper than 255 still waits inside its
+    submit: its assembly10 call reads an error word.)"""
     pending = []
     batches = paired_batches(pu_t, pu_n, max_batch=max_batch,
                              drop_tumor=drop_t, drop_normal=drop_n,

@@ -91,6 +91,49 @@ def test_assembly10_card_rejects_counts_past_the_table(dev, shift):
     torch.cuda.synchronize()  # no sticky fault from the kernel
 
 
+@pytest.mark.parametrize("B", [1, 17, 1001])
+def test_assembly10_card_odd_batch(dev, B):
+    """Sixteen lanes a column, two columns a warp: at an odd B the last
+    warp holds one column (at B = 1 the only one) and its other half
+    takes part in the shuffles without loading or storing."""
+    D = 48
+    dtabs = device_tables(T.build_tables(T.ModelParams()), dev)
+    s, nk, r = _lanes(B, D, 7, dev)
+    e, f, c, _ = gk.accumulate32(s, nk, r, dtabs.fk_weights, 60)
+    args = (e, f, c, nk, *dtabs.assembly_tables(D))
+    lk, mlk = gk.assembly10(*args)
+    lk_p, mlk_p = gk.assembly10_plain(*args)
+    lk2, mlk2, err = gk.assembly10_launch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(lk, lk_p) and torch.equal(mlk, mlk_p)
+    assert torch.equal(lk, lk2) and torch.equal(mlk, mlk2)
+    assert int(err) == 0
+
+
+@pytest.mark.parametrize("shift", [5, -1])
+def test_assembly10_card_offenders_beside_good_columns(dev, shift):
+    """Columns whose counts index past the tables share warps with good
+    columns: the launch flags them and zeroes their rows, and every good
+    column still equals the plain version's."""
+    B, D = 301, 16
+    dtabs = device_tables(T.build_tables(T.ModelParams()), dev)
+    s, nk, r = _lanes(B, D, 11, dev)
+    e, f, c, _ = gk.accumulate32(s, nk, r, dtabs.fk_weights, 60)
+    tabs = dtabs.assembly_tables(D)
+    lk_p, mlk_p = gk.assembly10_plain(e, f, c, nk, *tabs)
+    bad = torch.zeros(B, dtype=torch.bool, device=dev)
+    bad[[0, 5, 6, 150, 299, 300]] = True  # either half of a warp, and both
+    c_bad = torch.where(bad[:, None], c + shift * (D + 1), c)
+    lk, mlk, err = gk.assembly10_launch(e, f, c_bad, nk, *tabs)
+    torch.cuda.synchronize()
+    assert int(err) == 1
+    assert torch.equal(lk[~bad], lk_p[~bad])
+    assert torch.equal(mlk[~bad], mlk_p[~bad])
+    assert int(lk[bad].abs().max()) == 0 and int(mlk[bad].abs().max()) == 0
+    with pytest.raises(ValueError, match="table depth"):
+        gk.assembly10(e, f, c_bad, nk, *tabs)
+
+
 def test_call_batch_packed_card_matches_cpu(dev):
     B, D = 2048, 48
     stacked, meta = random_slab(B, D, seed=3)
@@ -162,6 +205,72 @@ def test_rank_kernels_match_plain_on_card(dev, B, D):
     assert all(torch.equal(a, b) for a, b in zip(k16, k16_2))
 
 
+@pytest.mark.parametrize("B,D", [(1001, 31), (1001, 33), (517, 65),
+                                 (131, 129), (67, 255), (3, 1)])
+@pytest.mark.parametrize("encoding", ["raw32", "u32", "u16"])
+def test_fused_kernels_match_two_step_on_card(dev, encoding, B, D):
+    """An accumulate and the assembly in one launch against the two
+    launches: the stand-alone accumulate kernel's sums through
+    assembly10_plain give the same lk and min_lk bit for bit, rms and n
+    are equal, a second launch gives the same bits, and only the fused
+    kernel's counter moves."""
+    dtabs = device_tables(T.build_tables(T.ModelParams()), dev)
+    w, tabs = dtabs.fk_weights, dtabs.assembly_tables(D)
+    if encoding == "raw32":
+        s, nk, r = _lanes(B, D, D, dev)
+        e, f, c, rms = gk.accumulate32(s, nk, r, w, 60)
+        want = (*gk.assembly10_plain(e, f, c, nk, *tabs), rms)
+        name, fused = "glfgen32", lambda: gk.glfgen32(s, nk, r, w, *tabs, 60)
+    else:
+        slots, depth, ref16 = random_u32(B, D, D)
+        depth[0] = D  # one full column
+        if encoding == "u32":
+            s, dp, r = (torch.from_numpy(a).to(dev)
+                        for a in (slots.view(np.int32), depth, ref16))
+            e, f, c, rms, n = gk.accumulate(s, dp, r, w, 60)
+            want = (*gk.assembly10_plain(e, f, c, n, *tabs), rms, n)
+            name = "glfgen"
+            fused = lambda: gk.glfgen_u32(s, dp, r, w, *tabs, 60)  # noqa: E731
+        else:
+            s16, nk, _ = to_packed16(slots, depth, ref16)
+            s, nk = torch.from_numpy(s16).to(dev), torch.from_numpy(nk).to(dev)
+            e, f, c = gk.accumulate16(s, nk, w)
+            want = gk.assembly10_plain(e, f, c, nk, *tabs)
+            name, fused = "glfgen16", lambda: gk.glfgen16(s, nk, w, *tabs)
+    before = dict(gk.LAUNCHES)
+    got, again = fused(), fused()
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for a, b, c2 in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c2)
+    after = dict(gk.LAUNCHES)
+    assert after.pop(name) == before.pop(name) + 2
+    assert after == before
+
+
+def test_glfgen_batch_card_routes_by_depth(dev):
+    """To depth 255 glfgen_batch launches the fused kernel alone; deeper,
+    the accumulate and assembly10."""
+    from somatic_sniper_tpu_torch.models import glfgen as tg
+
+    dtabs = device_tables(T.build_tables(T.ModelParams()), dev)
+    for D, want in ((255, {"glfgen": 1}),
+                    (256, {"accumulate": 1, "assembly10": 1})):
+        slots, depth, ref16 = random_u32(64, D, D)
+        cols = tg.ColumnBatch(*(torch.from_numpy(a).to(dev) for a in
+                                (slots.view(np.int32), depth, ref16)))
+        gk.reset_launches()
+        on_card = tg.glfgen_batch(cols, dtabs, 60)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in gk.LAUNCHES.items() if v} == want
+        cpu = tg.glfgen_batch(
+            tg.ColumnBatch(*(t.cpu() for t in cols[:3])),
+            device_tables(T.build_tables(T.ModelParams()), "cpu"), 60)
+        assert torch.equal(on_card.depth.cpu(), cpu.depth)
+        assert torch.equal(on_card.rms_mapq.cpu(), cpu.rms_mapq)
+        assert int((on_card.lk.cpu() - cpu.lk).abs().max()) <= 1
+
+
 @pytest.mark.parametrize("packed16", [True, False])
 def test_call_batch_stacked_card_matches_cpu(dev, packed16):
     """The batch path's i32 rows on the card against the CPU (plain
@@ -185,7 +294,8 @@ def test_call_batch_stacked_card_matches_cpu(dev, packed16):
 
 def test_cli_fast_on_card_without_native_golden(dev, tmp_path, monkeypatch):
     """The whole-file CLI with the native loaders switched off: pure-
-    Python decode, u16 batches through accumulate16 on the card."""
+    Python decode, u16 batches through glfgen16 on the card (accumulate16
+    and assembly10 only for a batch deeper than 255)."""
     from somatic_sniper_tpu_torch.cli.main import main
     from somatic_sniper_tpu_torch.io import native_api
 
@@ -195,8 +305,9 @@ def test_cli_fast_on_card_without_native_golden(dev, tmp_path, monkeypatch):
     assert main(["--precision", "fast", "--device", "cuda", "-F", "vcf",
                  "-f", str(DATA / "small.fa"), str(DATA / "t-small.bam"),
                  str(DATA / "n-small.bam"), str(out)]) == 0
-    assert gk.LAUNCHES["accumulate16"] > 0
-    assert gk.LAUNCHES["accumulate32"] == 0
+    assert gk.LAUNCHES["glfgen16"] > 0  # shallow batches: one launch
+    assert gk.LAUNCHES["accumulate16"] == gk.LAUNCHES["assembly10"]
+    assert gk.LAUNCHES["accumulate32"] == gk.LAUNCHES["glfgen32"] == 0
     diff_records(filtered_lines(out), filtered_lines(DATA / "expected.vcf"),
                  "vcf")
 

@@ -161,7 +161,8 @@ def test_wrappers_check_inputs():
         gk.assembly10(e, e, c - 1, n, torch.zeros((60, 17, 17)),
                       torch.zeros((17, 17)))
     assert gk.LAUNCHES == {"accumulate32": 0, "accumulate": 0,
-                           "accumulate16": 0, "assembly10": 0}
+                           "accumulate16": 0, "assembly10": 0,
+                           "glfgen32": 0, "glfgen": 0, "glfgen16": 0}
 
 
 # -- accumulate (full u32 slots, deletions among the lanes) ---------------
