@@ -43,7 +43,24 @@ closing ``{"ok": true, ...}`` line is never printed):
    ``kernels`` line, each beside its bound (the least time the card
    could take: the bytes the inputs need over the memory rate, or the
    operations over the f32 rate, whichever is larger).  A kernel faster
-   than its bound is a fault of the count and fails the run.
+   than its bound is a fault of the count and fails the run;
+9. ``--jobs 1``, ``2`` and ``4`` through the port's CLI, each in a child
+   process, on the 10 Mb pair, fast on the card: output bytes equal to
+   phase 4's; wall and cols/s of each beside the single process, every
+   worker's start-up (spawn to first window) and stage times from its
+   own summary, and every worker's ``glfgen32`` launches (a worker that
+   launched none scored on the CPU: that fails);
+10. two processes joined by ``SNIPER_COORDINATOR`` with ``--merge
+    collective`` on the one card, same pair: the merged bytes equal to
+    phase 4's, once at the default chunk and once at
+    ``SNIPER_MERGE_CHUNK=4096``;
+11. the exact f64 glfgen on the card: phase 6's full-u32 batch route
+    with ``precision="exact"``, its lines byte-equal to phase 4's native
+    exact output, and the golden pair through the CLI with the native
+    library missing, exact, equal to ``tests/data/expected.vcf``;
+12. ``sharded_call_batch`` over ``[cuda:0, cuda:0]`` (two streams) at
+    (65536, 40) full-u32 and (8192, 48) raw lanes equal to the unsplit
+    call, and ``dryrun_multichip`` over as many GPUs as the machine has.
 
 Its first statements make ``import jax`` and ``import somatic_sniper_tpu``
 fail, so a pass also shows that the port needs neither; it imports only
@@ -59,6 +76,7 @@ sys.modules["somatic_sniper_tpu"] = None  # and any of the JAX package
 import hashlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import socket  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
@@ -610,20 +628,16 @@ def ensure_sim(name: str, sim: dict, index: bool) -> tuple[Path, int]:
     return d, json.loads(meta.read_text())["columns"]
 
 
-def u32_batches(pair: Path, n_cols: int, exact_lines: list[str], dev,
-                torch) -> tuple[dict, dict]:
-    """Phase 6: the whole-file batch path with full-u32 batches on the
-    10 Mb pair.  Returns (launches, stats) of the counted run."""
+def load_u32_pair(pair: Path, dev):
+    """The 10 Mb pair's pileups, prefilter flags and tables for the
+    whole-file batch path (phases 6 and 11).  Returns (context tuple,
+    seconds the load and the flags took)."""
     from somatic_sniper_tpu_torch import runner
     from somatic_sniper_tpu_torch.io.bam import read_bam_header
     from somatic_sniper_tpu_torch.io.fasta import FastaFile
     from somatic_sniper_tpu_torch.models.tables import (ModelParams,
-                                                        build_tables,
-                                                        device_tables)
-    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+                                                        build_tables)
     from somatic_sniper_tpu_torch.pileup.prefilter import prefilter_tables
-    from somatic_sniper_tpu_torch.utils.contract import diff_records, hist
-    from somatic_sniper_tpu_torch.utils.stats import STATS
 
     params = ModelParams()
     tabs = build_tables(params)
@@ -631,42 +645,79 @@ def u32_batches(pair: Path, n_cols: int, exact_lines: list[str], dev,
     fasta = FastaFile(str(pair / "ref.fa"))
     ref_blob, ref_off = runner._ref_blob(fasta, read_bam_header(tumor))
     gmin, margin = prefilter_tables(tabs)
-    dtabs = device_tables(tabs, dev)
     t0 = time.perf_counter()
     header_t, pu_t, _, pu_n = runner._load_pileups(
         tumor, normal, params, (ref_blob, ref_off, tabs.fk, gmin, margin))
     refcache = runner.RefCache(fasta, header_t)
     drop_t, drop_n = runner._prefilter_flags(pu_t, pu_n, ref_blob, ref_off,
                                              tabs)
-    t_load = time.perf_counter() - t0
+    return ((params, tabs, pu_t, pu_n, refcache, drop_t, drop_n),
+            time.perf_counter() - t0)
+
+
+def u32_batches(loaded, t_load: float, n_cols: int, exact_lines: list[str],
+                dev, torch, precision: str = "fast") -> tuple[dict, dict]:
+    """The whole-file batch path with full-u32 batches on the 10 Mb pair
+    (phase 6 in fast precision, phase 11 in exact, on the card either
+    way).  Fast lines are held to the native exact output by the fast
+    contract, exact lines byte for byte.  Returns (launches, stats) of
+    the counted run."""
+    from somatic_sniper_tpu_torch import runner
+    from somatic_sniper_tpu_torch.models.tables import device_tables
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+    from somatic_sniper_tpu_torch.utils.contract import diff_records, hist
+    from somatic_sniper_tpu_torch.utils.stats import STATS
+
+    params, tabs, pu_t, pu_n, refcache, drop_t, drop_n = loaded
+    dtabs = device_tables(tabs, dev, precision)
+    if dtabs.coef.device != dev:
+        raise AssertionError(f"{precision} tables lie on {dtabs.coef.device}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     STATS.reset()
     gk.reset_launches()
     t1 = time.perf_counter()
     pending = runner.submit_batches(pu_t, pu_n, refcache, dtabs, dev,
                                     drop_t, drop_n, False, None,
-                                    params.cap_mapq)
+                                    params.cap_mapq, precision=precision)
     recs = runner.collect_pending(pending, pu_t, pu_n, refcache, dtabs, dev,
-                                  "vcf")
+                                  "vcf", precision=precision)
     t_score = time.perf_counter() - t1
     launches = dict(gk.LAUNCHES)
     stats = STATS.snapshot()
-    print("  stage times of the batches:\n" + STATS.summary(), flush=True)
+    print(f"  stage times of the {precision} batches:\n" + STATS.summary(),
+          flush=True)
     lines = [ln.rstrip("\n") for _, ln in recs]
-    tol = diff_records(lines, [ln for ln in exact_lines
-                               if not ln.startswith("#")], "vcf")
+    want = [ln for ln in exact_lines if not ln.startswith("#")]
     batches = int(stats.get("batches_dispatched", 0))
     dev_cols = int(stats.get("device_columns", 0))
     wall = t_load + t_score
     print(f"  batches {batches}, device columns {dev_cols}, output lines "
           f"{len(lines)}", flush=True)
-    print_digest(lines)
-    print(f"  wall {wall:.3f} s (load + prefilter {t_load:.3f} s, batches "
-          f"{t_score:.3f} s), {n_cols / wall:.0f} cols/s of {n_cols}; "
-          f"device columns {dev_cols / t_score:.0f} cols/s", flush=True)
+    if precision == "fast":
+        print_digest(lines)
+    print(f"  {precision}: wall {wall:.3f} s (load + prefilter {t_load:.3f} "
+          f"s, batches {t_score:.3f} s), {n_cols / wall:.0f} cols/s of "
+          f"{n_cols}; device columns {dev_cols / t_score:.0f} cols/s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} "
+          "MiB", flush=True)
     print(f"  launches {launches}", flush=True)
-    print(f"  contract ok, hist {json.dumps(hist(tol), sort_keys=True)}",
-          flush=True)
-    check_batch_launches(launches, stats, "glfgen", "accumulate")
+    if precision == "fast":
+        tol = diff_records(lines, want, "vcf")
+        print(f"  contract ok, hist {json.dumps(hist(tol), sort_keys=True)}",
+              flush=True)
+        check_batch_launches(launches, stats, "glfgen", "accumulate")
+    else:
+        if lines != want:
+            raise AssertionError(
+                f"exact batches on the card: {len(lines)} lines differ from "
+                f"the native exact scorer's {len(want)}")
+        print(f"  {len(lines)} lines byte-equal to the native exact "
+              "output", flush=True)
+        # the f64 glfgen is torch ops: it launches no hand-written kernel
+        if batches == 0 or dev_cols == 0 or any(launches.values()):
+            raise AssertionError(f"{batches} exact batches, {dev_cols} "
+                                 f"device columns, launches {launches}")
     return launches, stats
 
 
@@ -751,6 +802,260 @@ def cli_without_native(out_dir: Path, torch) -> tuple[dict, dict]:
           flush=True)
     check_batch_launches(launches, stats, "glfgen16", "accumulate16")
     return launches, stats
+
+
+CLI_CHILD = """\
+import sys
+sys.modules["jax"] = None
+sys.modules["somatic_sniper_tpu"] = None
+from somatic_sniper_tpu_torch.cli.main import main
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+def parse_summaries(err: str) -> list[dict]:
+    """The stage summaries (``utils/stats.RunStats.summary``) in a run's
+    standard error, one dict a summary: seconds of a timed stage, the
+    count of a counter."""
+    blocks, inside = [], False
+    for ln in err.splitlines():
+        if ln.startswith("[sniper-tpu stats]"):
+            blocks.append({})
+            inside = True
+        elif inside and ln.startswith("  ") and len(ln.split()) >= 2:
+            name, val = ln.split()[:2]
+            try:
+                blocks[-1][name] = (float(val[:-1]) if val.endswith("s")
+                                    else int(val))
+            except ValueError:
+                inside = False
+        else:
+            inside = False
+    return blocks
+
+
+def start_cli(args: list[str], env: dict) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-c", CLI_CHILD, *args], cwd=REPO,
+        env=dict(os.environ, SNIPER_STATS="1", **env),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_cli(procs: list[subprocess.Popen], limit: float) -> list[str]:
+    """Wait for the child processes (killed at the limit); returns what
+    each wrote to its standard error, raising if one failed."""
+    deadline = time.monotonic() + limit
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=max(1.0,
+                                               deadline - time.monotonic()))
+            errs.append(err)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, err in zip(procs, errs):
+        if p.returncode != 0:
+            raise AssertionError(f"CLI child exited {p.returncode}:\n"
+                                 f"{err[-4000:]}")
+    return errs
+
+
+def check_scored_on_card(summaries: list[dict], n: int, what: str) -> dict:
+    """``n`` processes' summaries, each of which must show slabs scored
+    through glfgen32 on the card (one launch a sample a slab).  Returns
+    the launches of the path, summed."""
+    if len(summaries) != n:
+        raise AssertionError(f"{what}: {len(summaries)} stage summaries "
+                             f"for {n} processes")
+    for i, b in enumerate(summaries):
+        if (b.get("launches_glfgen32", 0) <= 0
+                or b["launches_glfgen32"] != 2 * b.get("slabs_dispatched", 0)
+                or b.get("device_columns", 0) <= 0):
+            raise AssertionError(
+                f"{what}: process {i} did not score its slabs through "
+                f"glfgen32 on the card: {b}")
+    return {"glfgen32": sum(b["launches_glfgen32"] for b in summaries)}
+
+
+def jobs_runs(common: list[str], out_dir: Path, fast_lines: list[str],
+              n_cols: int, inproc_walls: list[float]) -> dict:
+    """Phase 9: ``--jobs 1, 2, 4`` through the CLI, each run a child
+    process, fast on the card.  Returns {jobs: launches of its
+    workers}."""
+    ncpu = os.cpu_count() or 1
+    print(f"  host cores {ncpu}; single process inside this process "
+          "(phase 4, torch loaded, context up): " + ", ".join(
+              f"{w:.3f} s" for w in inproc_walls), flush=True)
+    launches = {}
+    for jobs in (1, 2, 4):
+        out = out_dir / f"jobs{jobs}.vcf"
+        t0 = time.perf_counter()
+        err, = finish_cli([start_cli(
+            ["--precision", "fast", "--device", "cuda", "--jobs", str(jobs),
+             *common, str(out)], {})], 600)
+        wall = time.perf_counter() - t0
+        if body_lines(out) != fast_lines:
+            raise AssertionError(f"--jobs {jobs} gave other bytes than the "
+                                 "single process")
+        workers = parse_summaries(err)
+        launches[jobs] = check_scored_on_card(workers, min(jobs, ncpu),
+                                              f"--jobs {jobs}")
+        print(f"  --jobs {jobs}: wall {wall:.3f} s ({n_cols / wall:.0f} "
+              f"cols/s), bytes equal to phase 4's fast output; glfgen32 "
+              f"launches {[b['launches_glfgen32'] for b in workers]}",
+              flush=True)
+        for i, b in enumerate(workers):
+            if jobs > 1 and "worker_startup" not in b:
+                raise AssertionError(f"worker {i} reported no start-up")
+            start = (f"start-up (spawn to first window) "
+                     f"{b['worker_startup']:.3f} s, of which the "
+                     f"interpreter and the imports "
+                     f"{b.get('worker_startup.imports', 0):.3f} s, "
+                     if jobs > 1 else "")
+            print(f"    process {i}: {start}load_wait "
+                  f"{b.get('load_wait', 0):.3f} s, plan "
+                  f"{b.get('plan', 0):.3f} s, pad+dispatch "
+                  f"{b.get('pad+dispatch', 0):.3f} s, device "
+                  f"{b.get('device', 0):.3f} s, emit {b.get('emit', 0):.3f} "
+                  f"s, tail {b.get('tail', 0):.3f} s; device columns "
+                  f"{b.get('device_columns', 0)}, slabs "
+                  f"{b.get('slabs_dispatched', 0)}",
+                  flush=True)
+    return launches
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def collective_runs(common: list[str], out_dir: Path, fast_lines: list[str],
+                    n_cols: int) -> dict:
+    """Phase 10: two processes joined through a local coordinator, both
+    scoring on the one card, ``--merge collective``; once at the default
+    chunk and once at 4096 bytes (many rounds).  Returns the launches of
+    the first run's two processes."""
+    launches = None
+    for chunk in (None, "4096"):
+        out = out_dir / f"collective_{chunk or 'default'}.vcf"
+        for f in out_dir.glob(out.name + "*"):
+            f.unlink()
+        env = {"SNIPER_COORDINATOR": f"127.0.0.1:{free_port()}",
+               "SNIPER_NUM_PROCESSES": "2"}
+        if chunk:
+            env["SNIPER_MERGE_CHUNK"] = chunk
+        t0 = time.perf_counter()
+        errs = finish_cli([start_cli(
+            ["--precision", "fast", "--device", "cuda", "--merge",
+             "collective", *common, str(out)],
+            dict(env, SNIPER_PROCESS_ID=str(i))) for i in range(2)], 600)
+        wall = time.perf_counter() - t0
+        if body_lines(out) != fast_lines:
+            raise AssertionError("the collective merge gave other bytes "
+                                 "than the single process")
+        shard_bytes = [(out_dir / f"{out.name}.shard{i}").stat().st_size
+                       for i in range(2)]
+        procs = [b for err in errs for b in parse_summaries(err)]
+        counted = check_scored_on_card(procs, 2, "--merge collective")
+        launches = launches or counted
+        rounds = max(1, -(-max(shard_bytes) // int(chunk or 4 << 20)))
+        print(f"  chunk {chunk or 'default (4 MiB)'}: wall {wall:.3f} s "
+              f"({n_cols / wall:.0f} cols/s), merged bytes equal to phase "
+              f"4's fast output; shards {shard_bytes} bytes, {rounds} "
+              f"round(s); glfgen32 launches "
+              f"{[b['launches_glfgen32'] for b in procs]}", flush=True)
+    return launches
+
+
+def exact_golden_without_native(out_dir: Path) -> None:
+    """Phase 11, second half: the golden pair through the CLI with the
+    native library missing, exact precision on the card."""
+    out = out_dir / "golden_exact_no_native.vcf"
+    t0 = time.perf_counter()
+    err, = finish_cli([start_cli(
+        ["--precision", "exact", "--device", "cuda", "-F", "vcf", "-f",
+         str(GOLDEN / "small.fa"), str(GOLDEN / "t-small.bam"),
+         str(GOLDEN / "n-small.bam"), str(out)],
+        {"SNIPER_NATIVE_LIB": str(DATA / "no_such_native_library.so")})],
+        600)
+    b, = parse_summaries(err)
+    if b.get("batches_dispatched", 0) <= 0 or "decode" not in b:
+        raise AssertionError(f"the run did not take the batch path: {b}")
+    if body_lines(out) != body_lines(GOLDEN / "expected.vcf"):
+        raise AssertionError("exact without the native library differs "
+                             "from tests/data/expected.vcf")
+    print(f"  golden pair, exact on the card without the native library: "
+          f"{len(body_lines(out))} lines equal to tests/data/expected.vcf, "
+          f"{b['batches_dispatched']} batches, {b['device_columns']} device "
+          f"columns, wall {time.perf_counter() - t0:.3f} s (child process)",
+          flush=True)
+
+
+def split_batches(dtabs, dev, torch) -> dict:
+    """Phase 12: ``sharded_call_batch`` over the one card twice (two
+    parts, each on a stream of its own) against the unsplit call, every
+    field equal; then the dry run over the machine's GPUs.  Returns the
+    launches of the split calls."""
+    from somatic_sniper_tpu_torch.models.glfgen import ColumnBatch
+    from somatic_sniper_tpu_torch.models.somatic import call_batch
+    from somatic_sniper_tpu_torch.models.tables import ModelParams
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+    from somatic_sniper_tpu_torch.parallel.dryrun import dryrun_multichip
+    from somatic_sniper_tpu_torch.parallel.sharding import sharded_call_batch
+    from somatic_sniper_tpu_torch.runner import dtabs_for
+
+    params = ModelParams()
+    mesh = [dev, dev]
+    total = {}
+    for B, D, raw in ((65536, 40, False), (8192, 48, True)):
+        batches = []
+        for seed in (1, 2):
+            if raw:
+                s, nk, r = random_slab_lanes(B, D, seed)
+                # the raw depth may count deletions the lanes dropped
+                batches.append((s, nk + (nk > 0), r, nk))
+            else:
+                batches.append(random_u32_lanes(B, D, seed))
+        ref16 = batches[0][2]
+        tumor, normal = (ColumnBatch(*(torch.from_numpy(a) for a in
+                                       (b[0], b[1], ref16, *b[3:])))
+                         for b in batches)
+        on_card = [ColumnBatch(*(None if t is None else t.to(dev)
+                                 for t in cb)) for cb in (tumor, normal)]
+        whole = call_batch(*on_card, dtabs, params)
+        times = {}
+        for where, pair in (("host", (tumor, normal)), ("card", on_card)):
+            gk.reset_launches()
+            split = sharded_call_batch(mesh, *pair, dtabs_for(params, "fast"),
+                                       params)
+            torch.cuda.synchronize()
+            name = "glfgen32" if raw else "glfgen"
+            if gk.LAUNCHES[name] != 4 or sum(gk.LAUNCHES.values()) != 4:
+                raise AssertionError(f"two parts of two samples launched "
+                                     f"{gk.LAUNCHES}")
+            total[name] = total.get(name, 0) + 4
+            for f, a, b in zip(whole._fields, split, whole):
+                if (a is None) != (b is None) or (
+                        a is not None and not torch.equal(a, b)):
+                    raise AssertionError(
+                        f"the split call differs from the unsplit one in "
+                        f"{f} at {(B, D)}, batches on the {where}")
+            times[where] = call_ms(lambda: sharded_call_batch(
+                mesh, *pair, dtabs_for(params, "fast"), params), torch)
+        unsplit_ms = call_ms(lambda: call_batch(*on_card, dtabs, params),
+                             torch)
+        print(f"  B={B} D={D} {'raw lanes' if raw else 'full u32'}: split "
+              f"over [{dev}, {dev}] equal to the unsplit call in every "
+              f"field, {int(whole.emit.sum())} emitted; per call: split "
+              f"from the host {times['host']:.3f} ms, split on the card "
+              f"{times['card']:.3f} ms, unsplit on the card "
+              f"{unsplit_ms:.3f} ms", flush=True)
+    dryrun_multichip(torch.cuda.device_count())
+    return total
 
 
 def run_cli(args: list[str]) -> float:
@@ -912,8 +1217,9 @@ def main() -> int:
           flush=True)
 
     phase("6 batch path, full-u32 batches: 10 Mb pair, whole file")
+    loaded, t_load = load_u32_pair(pair, dev)
     launches_u32, stats_u32 = u32_batches(
-        pair, n_cols, body_lines(out_dir / "exact.vcf"), dev, torch)
+        loaded, t_load, n_cols, body_lines(out_dir / "exact.vcf"), dev, torch)
 
     phase("7 CLI without the native library: 1 Mb pair, u16 batches")
     launches_u16, stats_u16 = cli_without_native(out_dir, torch)
@@ -932,6 +1238,22 @@ def main() -> int:
     at_path = kernels_at_path_shapes(shapes, dtabs, dev, torch, floor_ms)
     for (name, _), t in at_path.items():
         errs[name] = max(errs[name], t[0])
+
+    phase("9 --jobs 1, 2, 4: 10 Mb pair, fast on the card, child processes")
+    launches_jobs = jobs_runs(common, out_dir, fast_lines, n_cols,
+                              walls["fast"])
+
+    phase("10 --merge collective: two processes on the one card")
+    launches_coll = collective_runs(common, out_dir, fast_lines, n_cols)
+
+    phase("11 the exact f64 glfgen on the card")
+    u32_batches(loaded, t_load, n_cols, body_lines(out_dir / "exact.vcf"),
+                dev, torch, precision="exact")
+    del loaded
+    exact_golden_without_native(out_dir)
+
+    phase("12 the batch split over devices, and the dry run")
+    launches_split = split_batches(dtabs, dev, torch)
 
     # each kernel's launches from the phase that ran it, its times at
     # the main shape of its path (phase 8)
@@ -975,7 +1297,14 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": kernels,
                       "launch_floor_ms": floor_ms,
-                      "launch_floor_grid": list(FLOOR_GRID)}), flush=True)
+                      "launch_floor_grid": list(FLOOR_GRID),
+                      # launches of the paths of phases 9, 10 and 12,
+                      # each counted from zero over its own run
+                      "path_launches": {
+                          **{f"jobs_{n}": v
+                             for n, v in launches_jobs.items()},
+                          "collective_2": launches_coll,
+                          "split_2_streams": launches_split}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

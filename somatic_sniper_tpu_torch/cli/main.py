@@ -3,13 +3,16 @@
 Same flag surface as ``bam-somaticsniper-tpu`` plus ``--device
 {cuda,cpu}``.  ``usage_text``, ``build_parser`` and ``_commit_id`` are
 the port's own copies of those in somatic_sniper_tpu/cli/main.py (the
-port imports nothing of the JAX package); ``main`` and ``_run`` port
-:299-565 there: whole-file and windowed runs, ``--manifest`` resume and
-``--shards/--shard-index``, in exact and fast precision.  Not copied:
-``_maybe_init_distributed`` (it imports JAX) and ``_run_jobs``; the
-flags they serve exit 1 here.  Without the native host library the
-whole-file fast path decodes in pure Python and scores u16 batches;
-exact precision and the windowed driver exit 1 there.
+port imports nothing of the JAX package); the rest ports :193-565
+there: whole-file and windowed runs, ``--manifest`` resume,
+``--shards/--shard-index``, ``--jobs`` (shard worker processes and a
+merge), and multi-process runs joined by ``SNIPER_COORDINATOR`` with
+``--merge collective`` (on ``torch.distributed``), in exact and fast
+precision.  Without the native host library the whole-file path decodes
+in pure Python and scores batches on the device (u16 batches in fast
+precision, full-u32 batches through the f64 glfgen in exact); the
+windowed path needs the library's region loads, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -17,13 +20,14 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 from .. import __version__
 from ..io.bam import read_bam_header
 from ..models.tables import ModelParams
 from ..output.formatters import FORMATTERS, get_formatter
 from ..output.records import HeaderData
-from ..runner import NOT_PORTED, NativeUnavailable
+from ..runner import NativeUnavailable
 from ..utils import stats as run_stats
 
 PROG = "bam-somaticsniper-torch"
@@ -147,17 +151,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "partition); omit to process all shards locally")
     p.add_argument("--jobs", type=int, default=1, metavar="INT",
                    help="run INT shard worker processes on this host and "
-                        "merge their outputs (built-in equivalent of the "
-                        "manual --shards/--shard-index + merge_shards "
-                        "workflow; the reference scaled only by running "
-                        "one process per chromosome externally)")
+                        "merge their outputs with "
+                        "somatic_sniper_tpu_torch.scripts.merge_shards "
+                        "(built-in equivalent of the manual "
+                        "--shards/--shard-index + merge workflow; the "
+                        "reference scaled only by running one process per "
+                        "chromosome externally)")
     p.add_argument("--merge", default="files",
                    choices=("files", "collective"),
                    help="multi-process record merge: 'files' writes one "
                         "output per process for scripts.merge_shards; "
-                        "'collective' all-gathers shard bytes (no shared "
-                        "filesystem needed) and process 0 writes the "
-                        "merged output [files]")
+                        "'collective' all-gathers shard bytes over "
+                        "torch.distributed (no shared filesystem needed) "
+                        "and process 0 writes the merged output [files]")
     p.add_argument("--window-size", type=int, default=250_000,
                    help="genome window length for the region-sharded "
                         "streaming driver [250000]")
@@ -171,7 +177,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(re-running with the same manifest skips "
                         "completed windows)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="device that scores fast-precision slabs; cuda "
+                   help="device that scores slabs and batches; cuda "
                         "fails when no GPU is present [cuda]")
     p.add_argument("tumor_bam", nargs="?")
     p.add_argument("normal_bam", nargs="?")
@@ -208,23 +214,154 @@ def _commit_id() -> str:
     return "unknown"
 
 
-def _not_ported(what: str) -> int:
-    print(f"{PROG}: {what} is {NOT_PORTED}", file=sys.stderr)
-    return 1
+# set by --jobs for its workers: the epoch second they were spawned at,
+# so that each reports its start-up (spawn to first window) in its stats
+SPAWNED_AT_ENV = "SNIPER_JOBS_SPAWNED_AT"
+
+
+def _maybe_init_distributed(args) -> None:
+    """Multi-process initialization (opt-in via env, so single-process
+    runs never touch torch.distributed):
+
+        SNIPER_COORDINATOR=host:port SNIPER_NUM_PROCESSES=N \\
+        SNIPER_PROCESS_ID=I python -m somatic_sniper_tpu_torch.cli.main ...
+
+    Each process then defaults to genome shard I of N (overridable with
+    --shards/--shard-index) and scores its span on its local devices, as
+    its --device and CUDA_VISIBLE_DEVICES say; per-process outputs
+    concatenate via scripts.merge_shards, or through --merge collective.
+    The group is gloo's (parallel/collective.py says why).  Its timeout,
+    for the rendezvous here and for every collective after it, is
+    SNIPER_MERGE_TIMEOUT_MS but at least two minutes (processes start
+    seconds apart); the merge barrier applies the variable as it is."""
+    coord = os.environ.get("SNIPER_COORDINATOR")
+    if not coord:
+        return
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from ..parallel.collective import merge_timeout_ms
+
+    num = int(os.environ["SNIPER_NUM_PROCESSES"])
+    pid = int(os.environ["SNIPER_PROCESS_ID"])
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{coord}", rank=pid, world_size=num,
+        timeout=timedelta(milliseconds=max(merge_timeout_ms(), 120_000)))
+    if args.shards == 1 and args.shard_index is None:
+        args.shards = num
+        args.shard_index = pid
+    args._dist = (num, pid)
+
+
+def _run_jobs(args) -> int:
+    """--jobs N: spawn N shard worker processes (contiguous genome
+    partition, same numbering as --shards/--shard-index) and merge
+    their outputs; the merged bytes equal a single-process run.
+
+    Worker thread budget: each worker's region-load pool is clamped
+    (SNIPER_LOAD_POOL=1) when N workers x 2 load threads would
+    oversubscribe the host's cores.  Both libraries are built before
+    the workers start, so that N workers do not each run the
+    compilers."""
+    import subprocess
+    import tempfile
+
+    from ..io import native
+    from ..scripts.merge_shards import merge
+
+    ncpu = os.cpu_count() or 1
+    if args.jobs > ncpu:
+        # more workers than cores can't help: per-worker work is CPU
+        # bound; degrade instead of thrashing
+        print(f"--jobs {args.jobs} clamped to {ncpu} (host cores)",
+              file=sys.stderr)
+        args.jobs = ncpu
+    if args.jobs <= 1:
+        args.jobs = 1
+    native.get_lib()
+    if args.device == "cuda":
+        from ..ops import build
+
+        build.build()
+
+    base = [
+        sys.executable, "-m", "somatic_sniper_tpu_torch.cli.main",
+        "-f", args.ref, "-F", args.format,
+        "-q", str(args.mapq), "-Q", str(args.min_somatic_qual),
+        "-T", str(args.theta), "-N", str(args.n_hap),
+        "-r", str(args.het_rate),
+        "-n", args.normal_id, "-t", args.tumor_id,
+        "--precision", args.precision,
+        "--window-size", str(args.window_size),
+        "--device", args.device,
+    ]
+    for flag, on in (("-L", args.no_loh), ("-G", args.no_gor),
+                     ("-p", args.no_priors), ("-J", args.joint)):
+        if on:
+            base.append(flag)
+    if args.somatic_rate is not None:
+        base += ["-s", str(args.somatic_rate)]
+    tmpdir = tempfile.mkdtemp(prefix="sniper_jobs_")
+    outs = [os.path.join(tmpdir, f"shard{i}.out")
+            for i in range(args.jobs)]
+    wenv = dict(os.environ)
+    if "SNIPER_LOAD_POOL" not in wenv and 2 * args.jobs > ncpu:
+        wenv["SNIPER_LOAD_POOL"] = "1"
+    wenv[SPAWNED_AT_ENV] = repr(time.time())
+    procs = [
+        subprocess.Popen(
+            base + ["--shards", str(args.jobs), "--shard-index", str(i),
+                    args.tumor_bam, args.normal_bam, outs[i]],
+            env=wenv,
+        )
+        for i in range(args.jobs)
+    ]
+    rc = 0
+    for p in procs:
+        rc = rc or p.wait()
+    try:
+        if rc:
+            print(f"--jobs worker failed (exit {rc})", file=sys.stderr)
+            return rc
+        merge(args.output, outs)
+        return 0
+    finally:
+        for o in outs:
+            try:
+                os.unlink(o)
+            except OSError:
+                pass
+        try:
+            os.rmdir(tmpdir)
+        except OSError:
+            pass
 
 
 def main(argv=None) -> int:
+    _record_startup("worker_startup.imports")
     args = build_parser().parse_args(argv)
     if args.version:
         print(f"Somatic Sniper version ({__version__}) "
               f"(commit {_commit_id()}) (torch)")
         return 0
-    if os.environ.get("SNIPER_COORDINATOR"):
-        return _not_ported("multi-host init (SNIPER_COORDINATOR)")
-    if args.jobs > 1:
-        return _not_ported("--jobs")
-    if args.merge == "collective":
-        return _not_ported("--merge collective")
+    try:
+        _maybe_init_distributed(args)
+    except Exception as e:
+        print(f"{PROG}: distributed init failed "
+              f"({type(e).__name__}: {e})", file=sys.stderr)
+        return 3
+    try:
+        return _main(args)
+    finally:
+        if getattr(args, "_dist", None) is not None:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def _main(args) -> int:
     if not (args.tumor_bam and args.normal_bam and args.output):
         sys.stderr.write(usage_text(
             progname=PROG, mapq=args.mapq,
@@ -292,11 +429,103 @@ def main(argv=None) -> int:
     header_fn, _ = get_formatter(args.format)
     hdata = HeaderData(refseq=args.ref, normal_sample_id=args.normal_id,
                        tumor_sample_id=args.tumor_id)
+    if args.jobs > 1:
+        if args.shard_index is not None or args.manifest:
+            print("--jobs cannot combine with --shard-index/--manifest",
+                  file=sys.stderr)
+            return 1
+        return _run_jobs(args)
+    dist = getattr(args, "_dist", None)
+    if dist is not None and args.merge == "collective":
+        num, pid = dist
+        # Hard failure paths use os._exit: after a peer death the
+        # process group's teardown can block on the dead peer, turning a
+        # clean fail-fast into a hang.  The branch logic lives in
+        # _run_collective (returns the code + hard flag) so the failure
+        # semantics are unit-testable in-process; output and manifest
+        # are flushed before every hard exit.
+        rc, hard = _run_collective(args, params, header_fn, hdata, device,
+                                   num, pid)
+        if hard:
+            os._exit(rc)
+        return rc
     try:
         return _run(args, params, header_fn, hdata, device)
     except (OSError, ValueError, NativeUnavailable) as e:
+        # fail fast with a message, like the reference's exit paths
+        # (truncated/corrupt/unsorted inputs, malformed .fai, ...)
         print(f"{PROG}: {e}", file=sys.stderr)
         return 1
+
+
+def _run_collective(args, params, header_fn, hdata, device,
+                    num: int, pid: int) -> tuple[int, bool]:
+    """One collective-merge worker's run: score the shard, rendezvous,
+    all-gather the merge.  Returns ``(exit_code, hard)``: ``hard``
+    means the caller must ``os._exit`` (a peer may be dead and the
+    process group's teardown would hang; see _main).  Every failure
+    leaves the shard output + manifest on disk so a re-run with the
+    same manifests resumes."""
+    real_out = args.output
+    args.output = f"{real_out}.shard{pid}"
+    try:
+        rc = _run(args, params, header_fn, hdata, device)
+    except (OSError, ValueError, NativeUnavailable) as e:
+        print(f"{PROG}: {e}", file=sys.stderr)
+        sys.stderr.flush()
+        return 1, True
+    except Exception as e:
+        print(
+            f"{PROG}: distributed run failed "
+            f"({type(e).__name__}: {e}); shard output kept at "
+            f"{args.output} — re-run with the same manifests to "
+            "resume",
+            file=sys.stderr,
+        )
+        sys.stderr.flush()
+        return 3, True
+    if rc == 0:
+        from ..parallel import collective
+
+        try:
+            # rendezvous with a timeout BEFORE the all-gather: a dead
+            # peer must fail the survivors fast, not hang them in the
+            # collective; shard output + manifest stay on disk for a
+            # resumed re-run
+            collective.merge_barrier()
+        except Exception as e:
+            print(
+                f"{PROG}: merge barrier failed "
+                f"(a worker died or stalled): {e}; shard output "
+                f"kept at {args.output} — re-run with the same "
+                "manifests to resume",
+                file=sys.stderr,
+            )
+            sys.stderr.flush()
+            return 3, True
+        try:
+            collective.collective_merge(real_out, args.output, pid, num)
+        except Exception as e:
+            print(
+                f"{PROG}: collective merge failed "
+                f"({type(e).__name__}: {e}); shard outputs kept",
+                file=sys.stderr,
+            )
+            sys.stderr.flush()
+            return 3, True
+    return rc, False
+
+
+def _record_startup(stage: str = "worker_startup") -> None:
+    """A --jobs worker's start-up as a stage of its summary: the time
+    since its spawn (the parent stamps it into the environment), read
+    when ``main`` is entered (``worker_startup.imports``: the
+    interpreter and the imports) and at the first window
+    (``worker_startup``: also the indexes, the reference blob, the
+    device's context and tables, and the first slabs' round trip)."""
+    if SPAWNED_AT_ENV in os.environ:
+        run_stats.STATS.record(
+            stage, time.time() - float(os.environ[SPAWNED_AT_ENV]))
 
 
 def _use_windowed(args) -> bool:
@@ -336,6 +565,10 @@ def _run(args, params, header_fn, hdata, device) -> int:
                 fh.truncate()
             else:
                 header_fn(fh, hdata)
+            # fault-injection hook for the distributed failure tests: die
+            # hard (no cleanup, like a real crash) after N windows
+            fault_after = os.environ.get("SNIPER_FAULT_EXIT_AFTER_WINDOW")
+            n_done = 0
             for wi, _win, lines in call_pair_windows(
                 args.tumor_bam, args.normal_bam, args.ref, args.format,
                 params=params, precision=args.precision,
@@ -347,8 +580,23 @@ def _run(args, params, header_fn, hdata, device) -> int:
                 fh.flush()
                 if manifest:
                     manifest.mark(wi, fh.tell())
+                if n_done == 0:
+                    _record_startup()
+                n_done += 1
+                if fault_after and n_done >= int(fault_after):
+                    os._exit(17)
+            if n_done == 0:  # a shard with no window to score
+                _record_startup()
     if args.stats or run_stats.enabled():
-        print(run_stats.STATS.summary(), file=sys.stderr)
+        from ..ops.glfgen_kernels import LAUNCHES
+
+        for kernel, n in LAUNCHES.items():
+            if n:
+                run_stats.STATS.add(f"launches_{kernel}", n)
+        # one write, so that the summaries of --jobs workers, which share
+        # the parent's stderr, do not interleave
+        sys.stderr.write(run_stats.STATS.summary() + "\n")
+        sys.stderr.flush()
     return 0
 
 

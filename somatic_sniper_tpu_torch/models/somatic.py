@@ -1,11 +1,13 @@
-"""Batched somatic calling in torch, fast precision.
+"""Batched somatic calling in torch.
 
 Port of somatic_sniper_tpu/models/somatic.py (:62-124, :137-274,
 :279-385, :395-538): glfgen of both samples, consensus, the somatic
 score and the emission gates, the on-device dqstats (raw kept-only
 lanes only), and compaction of the emitted sites into i32 rows for the
 slab path (``call_batch_packed``) and the batch path
-(``call_batch_stacked``).
+(``call_batch_stacked``).  ``precision`` chooses the glfgen alone (f32
+kernels, or the reference's f64 arithmetic over full u32 words); every
+step after it is integer work and the same in both.
 """
 
 from __future__ import annotations
@@ -135,14 +137,14 @@ def _device_dqstats(slots, n_keep, rb4, wanted):
 
 
 def call_batch(tumor: ColumnBatch, normal: ColumnBatch, dtabs: DeviceTables,
-               params: ModelParams) -> CallResult:
-    """Batched glf_somatic (reference somatic_sniper.c:109-273), fast
-    precision, with the dqstats rows of both samples when the lanes are
-    raw kept-only words (the other encodings cannot give them,
-    somatic.py:239-252)."""
+               params: ModelParams, precision: str = "fast") -> CallResult:
+    """Batched glf_somatic (reference somatic_sniper.c:109-273), with
+    the dqstats rows of both samples when the lanes are raw kept-only
+    words (the other encodings cannot give them, somatic.py:239-252).
+    ``dtabs`` holds the tables of ``precision``."""
     p = params
-    g_t = glfgen_batch(tumor, dtabs, p.cap_mapq)
-    g_n = glfgen_batch(normal, dtabs, p.cap_mapq)
+    g_t = glfgen_batch(tumor, dtabs, p.cap_mapq, precision)
+    g_n = glfgen_batch(normal, dtabs, p.cap_mapq, precision)
     t_b1, t_b2, t_s1, t_s2 = glf2cns_batch(g_t.lk, tumor.depth,
                                            dtabs.q_r_int)
     n_b1, n_b2, n_s1, n_s2 = glf2cns_batch(g_n.lk, normal.depth,
@@ -205,7 +207,8 @@ def call_batch(tumor: ColumnBatch, normal: ColumnBatch, dtabs: DeviceTables,
 
 def call_batch_compact(tumor: ColumnBatch, normal: ColumnBatch,
                        dtabs: DeviceTables, params: ModelParams,
-                       max_emit: int) -> CompactResult:
+                       max_emit: int,
+                       precision: str = "fast") -> CompactResult:
     """call_batch + on-device compaction of the emitted rows
     (somatic.py:315-385).
 
@@ -213,9 +216,15 @@ def call_batch_compact(tumor: ColumnBatch, normal: ColumnBatch,
     j < min(count, K), K = min(max_emit, B); the rest repeat column 0,
     like the JAX package's ``nonzero(size=K, fill_value=0)``.  The
     compaction is a scatter, so nothing waits on the device."""
-    B = tumor.slots.shape[0]
+    return compact_rows(call_batch(tumor, normal, dtabs, params, precision),
+                        max_emit)
+
+
+def compact_rows(res: CallResult, max_emit: int) -> CompactResult:
+    """The compaction of call_batch_compact over a CallResult already
+    scored (by one call, or by parts gathered on one device)."""
+    B = res.emit.shape[0]
     K = min(max_emit, B)
-    res = call_batch(tumor, normal, dtabs, params)
     dev = res.emit.device
     emit_i = res.emit.to(I32)
     pos = torch.cumsum(emit_i, dim=0, dtype=I32) - emit_i
@@ -232,10 +241,9 @@ def call_batch_compact(tumor: ColumnBatch, normal: ColumnBatch,
     return CompactResult(count=emit_i.sum(dtype=I32), rows=rows)
 
 
-def call_batch_packed(stacked, meta, dtabs: DeviceTables,
-                      params: ModelParams) -> CompactResult:
-    """Fast-path entry over one packed slab; every emitted row fits
-    (K = B).
+def packed_column_batches(stacked, meta) -> tuple[ColumnBatch, ColumnBatch]:
+    """(tumor, normal) raw kept-only batches of one packed slab, on the
+    device the slab lies on.
 
     ``stacked`` [2, B, D] int32 raw kept-only lanes (tumor, normal);
     ``meta`` [3, B] int32 with ``meta[0] = ref16 << 24`` and
@@ -253,24 +261,30 @@ def call_batch_packed(stacked, meta, dtabs: DeviceTables,
     d_n = (meta[2] >> 8) & 0xFF
     nk_t = (meta[2] >> 16) & 0xFF
     nk_n = (meta[2] >> 24) & 0xFF
-    cb_t = ColumnBatch(slots=stacked[0], depth=d_t, ref16=ref16, n_keep=nk_t)
-    cb_n = ColumnBatch(slots=stacked[1], depth=d_n, ref16=ref16, n_keep=nk_n)
+    return (ColumnBatch(slots=stacked[0], depth=d_t, ref16=ref16,
+                        n_keep=nk_t),
+            ColumnBatch(slots=stacked[1], depth=d_n, ref16=ref16,
+                        n_keep=nk_n))
+
+
+def call_batch_packed(stacked, meta, dtabs: DeviceTables,
+                      params: ModelParams) -> CompactResult:
+    """Fast-path entry over one packed slab (layout of
+    packed_column_batches); every emitted row fits (K = B)."""
+    cb_t, cb_n = packed_column_batches(stacked, meta)
     return call_batch_compact(cb_t, cb_n, dtabs, params,
                               max_emit=stacked.shape[1])
 
 
-def call_batch_stacked(stacked, meta, dtabs: DeviceTables,
-                       params: ModelParams, packed16: bool, max_emit: int,
-                       compact: bool = True):
-    """call_batch(_compact) over the batch path's upload layout
-    (somatic.py:482-538).
+def stacked_column_batches(stacked, meta,
+                           packed16: bool) -> tuple[ColumnBatch, ColumnBatch]:
+    """(tumor, normal) batches of the batch path's upload layout, on the
+    device it lies on.
 
     ``stacked`` [2, B, D] (tumor, normal): uint16 compact lanes when
     ``packed16``, else int32 full slot words.  ``meta`` int32 rows:
     ``[d_t, d_n, ref16, nk_t, nk_n, rms_t, rms_n]`` ([7, B]) when
-    ``packed16``, else ``[d_t, d_n, ref16]`` ([3, B]).  Returns the
-    CompactResult (K = min(max_emit, B)) when ``compact``, else the full
-    CallResult."""
+    ``packed16``, else ``[d_t, d_n, ref16]`` ([3, B])."""
     want = (torch.uint16, 7) if packed16 else (I32, 3)
     if stacked.dim() != 3 or stacked.shape[0] != 2:
         raise ValueError(f"stacked: expected [2, B, D], got "
@@ -288,7 +302,18 @@ def call_batch_stacked(stacked, meta, dtabs: DeviceTables,
     else:
         cb_t = ColumnBatch(slots=stacked[0], depth=meta[0], ref16=meta[2])
         cb_n = ColumnBatch(slots=stacked[1], depth=meta[1], ref16=meta[2])
+    return cb_t, cb_n
+
+
+def call_batch_stacked(stacked, meta, dtabs: DeviceTables,
+                       params: ModelParams, packed16: bool, max_emit: int,
+                       compact: bool = True, precision: str = "fast"):
+    """call_batch(_compact) over the batch path's upload layout
+    (somatic.py:482-538; layout of stacked_column_batches).  Returns the
+    CompactResult (K = min(max_emit, B)) when ``compact``, else the full
+    CallResult.  Exact precision reads full slot words only."""
+    cb_t, cb_n = stacked_column_batches(stacked, meta, packed16)
     if compact:
         return call_batch_compact(cb_t, cb_n, dtabs, params,
-                                  max_emit=max_emit)
-    return call_batch(cb_t, cb_n, dtabs, params)
+                                  max_emit=max_emit, precision=precision)
+    return call_batch(cb_t, cb_n, dtabs, params, precision)

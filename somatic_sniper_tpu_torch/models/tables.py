@@ -321,26 +321,37 @@ def fk_weights_f32(theta: float, eta: float) -> np.ndarray:
 
 
 class DeviceTables:
-    """Model tables resident on one device: f32 coef/lhet, i32 priors,
-    the f32 rank-weight table, and per-slab-depth cuts for the assembly
-    kernel.  The f64 fk and the qAdd table have no device reader (the
-    weight table and the closed-form qAdd replace them)."""
+    """Model tables resident on one device, converted once per precision
+    (somatic_sniper_tpu/runner.py:163-180).
 
-    def __init__(self, tabs: ModelTables, device: torch.device):
+    Fast: f32 coef/lhet, the f32 rank-weight table and per-slab-depth
+    cuts for the assembly kernel; the f64 fk has no fast reader (the
+    weight table replaces it).  Exact: ``fk``, ``coef`` and ``lhet`` as
+    float64, read by the f64 glfgen.  Both: the i32 priors.  The qAdd
+    table has no device reader (models.consensus.make_qadd is its closed
+    form)."""
+
+    def __init__(self, tabs: ModelTables, device: torch.device,
+                 precision: str = "fast"):
         def put(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a)).to(
                 device=device, dtype=dtype)
 
+        if precision not in ("fast", "exact"):
+            raise ValueError(f"precision: {precision!r}")
+        f = torch.float64 if precision == "exact" else torch.float32
         self.params = tabs.params
-        self.coef = put(tabs.coef, torch.float32)
-        self.lhet = put(tabs.lhet, torch.float32)
+        self.precision = precision
+        self.coef = put(tabs.coef, f)
+        self.lhet = put(tabs.lhet, f)
         self.solo_prior = put(tabs.solo_prior, torch.int32)
         self.joint_prior = put(tabs.joint_prior, torch.int32)
         self.q_r_int = int(tabs.q_r_int)
-        self.fk_weights = put(
-            fk_weights_f32(tabs.params.theta, tabs.params.eta),
-            torch.float32,
-        )
+        if precision == "exact":
+            self.fk = put(tabs.fk, f)
+        else:
+            self.fk_weights = put(
+                fk_weights_f32(tabs.params.theta, tabs.params.eta), f)
         self._subs: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         self._lock = threading.Lock()
 
@@ -363,11 +374,14 @@ class DeviceTables:
 
 
 @functools.lru_cache(maxsize=8)
-def _device_tables(params: ModelParams, device: torch.device) -> DeviceTables:
-    return DeviceTables(build_tables(params), device)
+def _device_tables(params: ModelParams, device: torch.device,
+                   precision: str) -> DeviceTables:
+    return DeviceTables(build_tables(params), device, precision)
 
 
-def device_tables(tabs: ModelTables, device) -> DeviceTables:
-    """Process-wide DeviceTables cache keyed by ``(params, device)``:
-    the 16 MiB f32 coef upload is paid once, not once per run."""
-    return _device_tables(tabs.params, torch.device(device))
+def device_tables(tabs: ModelTables, device,
+                  precision: str = "fast") -> DeviceTables:
+    """Process-wide DeviceTables cache keyed by ``(params, device,
+    precision)``: the coef upload (16 MiB in f32, 32 MiB in f64) is paid
+    once, not once per run."""
+    return _device_tables(tabs.params, torch.device(device), precision)

@@ -4,11 +4,10 @@ The port's own copy of somatic_sniper_tpu/parallel/sharded.py: the
 windows, the shard split, the contig-transition quirk carry and the
 manifest are copied whole; the driver loop (:126-420 there) is ported,
 because the source's imports its device pieces from the JAX runner.
-Not copied: ``call_pair_sharded`` (a flattened record stream nothing in
-the port uses).  Fast windows that can plan feed the port's
-``TorchSlabDispatcher``; fast windows that cannot (no reference) go
-through the batch path with a deferred one-window collect; exact
-windows are scored by the native host layer.  This windowed driver
+Fast windows that can plan feed the port's ``TorchSlabDispatcher``;
+windows that cannot (no reference) go through the batch path with a
+deferred one-window collect, in either precision; exact windows with a
+reference are scored by the native host layer.  This windowed path
 needs the native region loader, as the JAX one does.
 
 The genome is cut into deterministic windows, each sought through the
@@ -43,7 +42,6 @@ from ..io.fasta import FastaFile
 from ..models.tables import ModelParams, build_tables, device_tables
 from ..pileup.prefilter import prefilter_tables
 from ..runner import (
-    NOT_PORTED,
     RefCache,
     _make_ref16_fn,
     _prefilter_flags,
@@ -157,10 +155,11 @@ def call_pair_windows(
 ) -> Iterator[tuple[int, tuple[int, int, int], list[str]]]:
     """Yield (window_index, window, output lines of ``fmt``) per genome
     window, in window order.  Window indices are global (stable across
-    shard counts).  ``device`` scores the fast path's slabs."""
+    shard counts).  ``device`` scores the fast path's slabs, and the
+    batches of windows that cannot plan."""
     require_native("the windowed driver (region loads)")
-    if precision == "fast" and device is None:
-        raise ValueError("fast precision needs a device")
+    if device is None and (precision == "fast" or not ref_fasta):
+        raise ValueError(f"{precision} precision needs a device here")
     header = read_bam_header(tumor_bam)
     idx_t = bai.ensure_index(tumor_bam)
     idx_n = bai.ensure_index(normal_bam)
@@ -196,9 +195,17 @@ def call_pair_windows(
 
     todo = [(wi, w) for wi, w in mine
             if not (skip_windows and wi in skip_windows)]
-    # region-load pool: cores minus the main and device threads, in
-    # [2, 6] (sharded.py:220-234)
-    pool_n = max(2, min(6, (os.cpu_count() or 2) - 2))
+    # SNIPER_LOAD_POOL bounds the concurrent region-load threads (the
+    # native loader releases the GIL); --jobs sets it to 1 for its
+    # workers when N workers x 2 load threads would oversubscribe the
+    # host's cores.  Default: cores minus the main and device threads,
+    # in [2, 6] (sharded.py:220-234)
+    default_pool = max(2, min(6, (os.cpu_count() or 2) - 2))
+    try:
+        pool_n = max(1, int(
+            os.environ.get("SNIPER_LOAD_POOL", str(default_pool))))
+    except ValueError:
+        pool_n = default_pool
     ex = ThreadPoolExecutor(max_workers=pool_n)
     # with threads to spare beyond a window's two loads, the window's
     # plan rides the pool too (sharded.py:239-247)
@@ -257,7 +264,8 @@ def call_pair_windows(
     def _collect(d):
         wi, win, pu_t, pu_n, pending = d
         records = collect_pending(pending, pu_t, pu_n, refcache,
-                                  device_tables(tabs, device), device, fmt)
+                                  device_tables(tabs, device, precision),
+                                  device, fmt, precision=precision)
         return wi, win, [ln for _, ln in records]
 
     try:
@@ -276,12 +284,8 @@ def call_pair_windows(
             if j < len(todo):
                 inflight.append(_submit_window(todo[j][1]))
             win = (tid, beg, end)
-            if precision == "exact":
-                if not can_exact_native(pu_t, pu_n, ref_blob):
-                    raise RuntimeError(
-                        "exact precision needs native pileups and a "
-                        "reference; the f64 glfgen fallback is "
-                        + NOT_PORTED)
+            if precision == "exact" and can_exact_native(pu_t, pu_n,
+                                                         ref_blob):
                 lines = exact_records_native(
                     pu_t, pu_n, tabs, ref_blob, ref_off, refcache, fmt,
                     plan=plan,
@@ -293,9 +297,10 @@ def call_pair_windows(
                 drop_t, drop_n = _prefilter_flags(pu_t, pu_n, ref_blob,
                                                   ref_off, tabs)
                 pending = submit_batches(
-                    pu_t, pu_n, refcache, device_tables(tabs, device),
-                    device, drop_t, drop_n, packed16, ref16_fn,
-                    params.cap_mapq)
+                    pu_t, pu_n, refcache,
+                    device_tables(tabs, device, precision), device, drop_t,
+                    drop_n, packed16, ref16_fn, params.cap_mapq,
+                    precision=precision)
                 if slab_disp is not None:  # mode-mix ordering guard
                     yield from slab_disp.finish()
                     slab_disp = None

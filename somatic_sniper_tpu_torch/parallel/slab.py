@@ -48,7 +48,8 @@ import numpy as np
 import torch
 
 from ..io.native_api import exact_pair_rows, slab_fill_pair
-from ..models.somatic import COMPACT_FIELDS, MAX_D, call_batch_packed
+from ..models.somatic import (COMPACT_FIELDS, MAX_D, call_batch_packed,
+                              compact_rows, packed_column_batches)
 from ..output.dqstats import get_dqstats_rows
 from ..utils.stats import STATS
 
@@ -468,8 +469,13 @@ class TorchSlabDispatcher:
         as numpy (runs on the background device thread; the host
         buffers are owned by the caller and never reused, _flush
         allocates fresh ones)."""
+        from ..runner import data_mesh, dtabs_for
+
         dtabs = self.dtabs_fn()
         STATS.add(f"slabs_at_depth_{stacked_h.shape[2]}", 1)
+        mesh = data_mesh(self.device)
+        if mesh is not None and self.B % len(mesh) != 0:
+            mesh = None  # such a slab goes unsplit (slab.py:513)
         ctx = (torch.cuda.stream(self._stream) if self._stream is not None
                else contextlib.nullcontext())
         with ctx:
@@ -477,11 +483,25 @@ class TorchSlabDispatcher:
                 # the tables were uploaded on the default stream
                 self._stream.wait_stream(
                     torch.cuda.default_stream(self.device))
-            with STATS.timer("pad+dispatch.upload"):
-                stacked = torch.from_numpy(stacked_h.view(np.int32)).to(
-                    self.device)
-                meta = torch.from_numpy(meta_h).to(self.device)
-            res = call_batch_packed(stacked, meta, dtabs, self.params)
+            if mesh is not None:
+                # each device is sent its part of the slab; the rows are
+                # gathered and compacted on the first
+                from .sharding import sharded_call_batch
+
+                cb_t, cb_n = packed_column_batches(
+                    torch.from_numpy(stacked_h.view(np.int32)),
+                    torch.from_numpy(meta_h))
+                res = compact_rows(
+                    sharded_call_batch(mesh, cb_t, cb_n,
+                                       dtabs_for(self.params, "fast"),
+                                       self.params), self.B)
+                STATS.add("slabs_split", 1)
+            else:
+                with STATS.timer("pad+dispatch.upload"):
+                    stacked = torch.from_numpy(
+                        stacked_h.view(np.int32)).to(self.device)
+                    meta = torch.from_numpy(meta_h).to(self.device)
+                res = call_batch_packed(stacked, meta, dtabs, self.params)
             count = res.count.to("cpu")
             rows = res.rows.to("cpu")
             if self._stream is not None:

@@ -6,18 +6,25 @@ lines.  The device path
 is the port's: ``TorchSlabDispatcher`` and the batch path
 (``submit_batches`` / ``collect_pending``) over ``models.somatic``.
 
-Exact precision runs entirely in the native host layer, as in the JAX
-package.  Fast precision with native pileups and a reference plans
-natively, then scores the survivors on the device in uniform slabs;
-columns deeper than the slab depth are scored exactly on the host.
-Fast precision without them (no native library: pure-Python decode and
-columnize; no reference) takes the batch path: every shared column,
-bucketed by depth, is scored on the device in u16 batches (with a
-reference) or full-u32 batches (without one).
+Exact precision with native pileups and a reference runs entirely in
+the native host layer, as in the JAX package.  Fast precision with them
+plans natively, then scores the survivors on the device in uniform
+slabs; columns deeper than the slab depth are scored exactly on the
+host.  Without them (no native library: pure-Python decode and
+columnize; no reference) both precisions take the batch path: every
+shared column, bucketed by depth, is scored on the device, fast in u16
+batches (with a reference) or full-u32 batches (without one), exact in
+full-u32 batches through the f64 glfgen.  The JAX package pins that
+exact compute to the host CPU because its accelerator emulates f64; a
+GPU has f64 units, so here it runs on the device the caller names.
+
+With more than one visible GPU every batch and slab is split over them
+(``data_mesh``, ``parallel.sharding.sharded_call_batch``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from dataclasses import dataclass
@@ -30,7 +37,8 @@ from .constants import NT16_TABLE
 from .io import native_api
 from .io.bam import BamHeader, read_bam, read_bam_header
 from .io.fasta import FastaFile
-from .models.somatic import COMPACT_FIELDS, CallResult, call_batch_stacked
+from .models.somatic import (COMPACT_FIELDS, CallResult, call_batch_stacked,
+                             compact_rows, stacked_column_batches)
 from .models.tables import (DeviceTables, ModelParams, build_tables,
                             device_tables)
 from .output.dqstats import get_dqstats_rows
@@ -39,7 +47,6 @@ from .pileup.columnize import (DEPTH_BUCKETS, PairedBatch, columnize,
 from .pileup.prefilter import build_ref16, prefilter_tables, pure_flags
 from .utils.stats import STATS
 
-NOT_PORTED = "not yet in the torch port"
 # rows a batch's compact result holds (runner.py:807); a batch that
 # emits more is refetched whole
 MAX_EMIT = 16384
@@ -73,13 +80,49 @@ class NativeUnavailable(RuntimeError):
 
 
 def require_native(what: str) -> None:
-    """Raise unless the native host library loads: exact precision (its
-    f64 glfgen fallback is not ported) and the windowed driver's region
-    loads need it."""
+    """Raise unless the native host library loads: the region loads of
+    ``parallel.sharded`` need it."""
     if not native_api.available():
         raise NativeUnavailable(
             f"{what} needs the native host library "
             "(somatic_sniper_tpu_torch/io/native), which is unavailable")
+
+
+_forced_mesh: list | None = None
+
+
+def data_mesh(device) -> list | None:
+    """The devices a batch or slab scored on ``device`` is split over, or
+    None for no split (runner.py:120-145): every visible GPU,
+    ``cuda:0..n-1``, when ``device`` is a GPU and there is more than
+    one; ``SNIPER_NO_MESH`` set keeps every dispatch on ``device``
+    alone."""
+    if _forced_mesh is not None:
+        return _forced_mesh
+    if os.environ.get("SNIPER_NO_MESH"):
+        return None
+    if torch.device(device).type != "cuda" or torch.cuda.device_count() <= 1:
+        return None
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@contextlib.contextmanager
+def forced_mesh(devices):
+    """Make ``data_mesh`` return ``devices`` (a list of torch.device, or
+    None) inside the block, whatever the machine has: the dry run's way
+    to put the production dispatch through the split on one card or on
+    the CPU."""
+    global _forced_mesh
+    saved, _forced_mesh = _forced_mesh, devices
+    try:
+        yield
+    finally:
+        _forced_mesh = saved
+
+
+def dtabs_for(params: ModelParams, precision: str):
+    """device -> that device's DeviceTables (cached per device)."""
+    return lambda dev: device_tables(build_tables(params), dev, precision)
 
 
 def _load_pileups(tumor_bam, normal_bam, params, flag_args=None):
@@ -213,12 +256,11 @@ def call_pair(
 ) -> Iterator[str]:
     """Whole-file run (runner.py:286-398), yielding the output lines of
     ``fmt`` ("classic"/"vcf"/"bed") in coordinate order.  ``device`` (a
-    torch.device) scores the fast path's slabs or batches; exact
-    precision never touches it."""
-    if precision == "exact":
-        require_native("exact precision (the f64 glfgen is "
-                       f"{NOT_PORTED})")
-    elif device is None:
+    torch.device) scores the fast path's slabs or batches, and the exact
+    path's batches where the native host scorer does not apply (no
+    native library, no reference); exact precision with native pileups
+    and a reference never touches it."""
+    if precision == "fast" and device is None:
         raise ValueError("fast precision needs a device")
     fasta = FastaFile(ref_fasta) if ref_fasta else None
     tabs = build_tables(params)
@@ -241,28 +283,29 @@ def call_pair(
     refcache = RefCache(fasta, header_t)
     if ref_blob is None:
         ref_blob, ref_off = _ref_blob(fasta, header_t)
-    if precision == "exact":
-        if not can_exact_native(pu_t, pu_n, ref_blob):
-            raise RuntimeError(
-                "exact precision needs native pileups and a reference; "
-                "the f64 glfgen fallback is " + NOT_PORTED)
+    if precision == "exact" and can_exact_native(pu_t, pu_n, ref_blob):
         for _, line in exact_records_native(
                 pu_t, pu_n, tabs, ref_blob, ref_off, refcache, fmt):
             yield line
         return
     # u16 batches carry '=' resolved against the reference; without
-    # one the batch path ships full u32 slots
-    packed16 = ref_blob is not None
+    # one the batch path ships full u32 slots, as the exact path always
+    # does
+    packed16 = precision == "fast" and ref_blob is not None
     if not can_plan(pu_t, pu_n, packed16):
-        dtabs = device_tables(tabs, device)
+        if device is None:
+            raise ValueError("exact precision without native pileups and a "
+                             "reference scores on a device: name one")
+        dtabs = device_tables(tabs, device, precision)
         drop_t, drop_n = _prefilter_flags(pu_t, pu_n, ref_blob, ref_off,
                                           tabs)
         ref16_fn = _make_ref16_fn(ref_blob, ref_off) if packed16 else None
         pending = submit_batches(pu_t, pu_n, refcache, dtabs, device,
                                  drop_t, drop_n, packed16, ref16_fn,
-                                 params.cap_mapq)
+                                 params.cap_mapq, precision=precision)
         for _, line in collect_pending(pending, pu_t, pu_n, refcache,
-                                       dtabs, device, fmt):
+                                       dtabs, device, fmt,
+                                       precision=precision):
             yield line
         return
     plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off)
@@ -336,15 +379,19 @@ def _prefilter_flags(pu_t, pu_n, ref_blob, ref_off, tabs):
 
 
 def submit_call_batch(batch: PairedBatch, ref16: np.ndarray,
-                      dtabs: DeviceTables, device, compact: bool = True):
-    """Upload one batch and score it on ``device`` (runner.py:750-812,
-    one device): one stacked upload of the two slot arrays (u16 stays
-    u16, half the bytes) and one of the metadata rows.  Returns the
-    on-device CompactResult (i32 rows, K = min(MAX_EMIT, B)) when
-    ``compact``, else the full CallResult.  The JAX package padded the
-    batch axis to a few bucket sizes (``_b_bucket``, :737-747) only to
-    bound XLA recompiles; torch needs no such padding, and padded rows
-    were empty and changed no output."""
+                      dtabs: DeviceTables, device, compact: bool = True,
+                      precision: str = "fast"):
+    """Upload one batch and score it on ``device`` (runner.py:750-812):
+    one stacked upload of the two slot arrays (u16 stays u16, half the
+    bytes) and one of the metadata rows; with a ``data_mesh``, each
+    device is sent its part of the two and the results are gathered on
+    the first.  Returns the on-device CompactResult (i32 rows,
+    K = min(MAX_EMIT, B)) when ``compact``, else the full CallResult.
+    The JAX package padded the batch axis to a few bucket sizes
+    (``_b_bucket``, :737-747) only to bound XLA recompiles; torch needs
+    no such padding, and padded rows were empty and changed no output
+    (so a part may be of any size, where the source needed the batch to
+    divide by the mesh)."""
     B = len(batch.keys)
     stacked_h = np.stack([batch.tumor, batch.normal])
     meta_rows = [batch.n_tumor, batch.n_normal, ref16]
@@ -354,19 +401,33 @@ def submit_call_batch(batch: PairedBatch, ref16: np.ndarray,
     else:
         stacked_h = stacked_h.view(np.int32)
     meta_h = np.stack([np.asarray(r, np.int32) for r in meta_rows])
+    STATS.add("device_columns", B)
+    mesh = data_mesh(device)
+    if mesh is not None:
+        from .parallel.sharding import sharded_call_batch
+
+        with STATS.timer("device.score"):
+            cb_t, cb_n = stacked_column_batches(
+                torch.from_numpy(stacked_h), torch.from_numpy(meta_h),
+                batch.packed16)
+            res = sharded_call_batch(mesh, cb_t, cb_n,
+                                     dtabs_for(dtabs.params, precision),
+                                     dtabs.params, precision)
+            STATS.add("batches_split", 1)
+            return compact_rows(res, MAX_EMIT) if compact else res
     with STATS.timer("device.upload"):
         stacked = torch.from_numpy(stacked_h).to(device)
         meta = torch.from_numpy(meta_h).to(device)
-    STATS.add("device_columns", B)
     with STATS.timer("device.score"):
         return call_batch_stacked(stacked, meta, dtabs, dtabs.params,
                                   packed16=batch.packed16, compact=compact,
-                                  max_emit=MAX_EMIT)
+                                  max_emit=MAX_EMIT, precision=precision)
 
 
 def submit_batches(pu_t, pu_n, refcache, dtabs, device, drop_t, drop_n,
                    packed16, ref16_fn, cap_mapq,
-                   max_batch: int = MAX_BATCH) -> list:
+                   max_batch: int = MAX_BATCH,
+                   precision: str = "fast") -> list:
     """Score every paired batch on the device (runner.py:399-418);
     returns the pending list for collect_pending, which fetches the
     rows.  Only counts and rows wait for the device: the kernels queue
@@ -383,7 +444,8 @@ def submit_batches(pu_t, pu_n, refcache, dtabs, device, drop_t, drop_n,
             if batch is None:
                 break
             _, ref16 = _ref_arrays(batch, refcache)
-        res = submit_call_batch(batch, ref16, dtabs, device)
+        res = submit_call_batch(batch, ref16, dtabs, device,
+                                precision=precision)
         STATS.add("batches_dispatched", 1)
         STATS.add(f"batch_columns_at_depth_{batch.tumor.shape[1]}",
                   len(batch.keys))
@@ -392,7 +454,8 @@ def submit_batches(pu_t, pu_n, refcache, dtabs, device, drop_t, drop_n,
 
 
 def collect_pending(pending, pu_t, pu_n, refcache, dtabs, device,
-                    fmt: str) -> list[tuple[int, str]]:
+                    fmt: str,
+                    precision: str = "fast") -> list[tuple[int, str]]:
     """Fetch the compacted results and build the output lines, sorted by
     column key (runner.py:624-698).  The counts come home in one copy,
     then each batch's first ``count`` rows (torch slices them exactly,
@@ -410,7 +473,7 @@ def collect_pending(pending, pu_t, pu_n, refcache, dtabs, device,
             continue
         if count > res.rows.shape[0]:
             full = submit_call_batch(batch, ref16, dtabs, device,
-                                     compact=False)
+                                     compact=False, precision=precision)
             STATS.add("batches_refetched", 1)
             with STATS.timer("emit"):
                 records.extend(emit_records(batch.keys, full, ref16, pu_t,

@@ -21,7 +21,8 @@ Enable the stderr summary with ``--stats`` on the CLI (or
 Copy of somatic_sniper_tpu/utils/stats.py: the port keeps its own host
 layer and imports nothing of the JAX package.  ``maybe_profile`` is the
 one function not copied as it was (the source starts a JAX profiler
-trace): here it records with ``torch.profiler``.
+trace): here it records with ``torch.profiler``; ``RunStats.record`` is
+the port's addition.
 """
 
 from __future__ import annotations
@@ -52,6 +53,13 @@ class RunStats:
             with self._lock:
                 self.seconds[stage] += dt
                 self.calls[stage] += 1
+
+    def record(self, stage: str, seconds: float) -> None:
+        """Add ``seconds`` measured elsewhere to a stage (not in the
+        source: a --jobs worker's start-up begins in its parent)."""
+        with self._lock:
+            self.seconds[stage] += seconds
+            self.calls[stage] += 1
 
     def add(self, counter: str, n: int = 1) -> None:
         with self._lock:

@@ -189,20 +189,36 @@ def test_call_pair_without_reference_emits_nothing(data_dir):
 
 def test_exact_and_windowed_still_need_native(data_dir, tmp_path,
                                               no_native, capsys):
+    """Without the native library exact precision no longer raises (the
+    test keeps its name): it scores full-u32 batches through the f64
+    glfgen on the device it is given and reproduces the goldens.  The
+    windowed path still needs the library's region loads, as in the
+    JAX package."""
     d, args = _sim1_args(data_dir)
-    with pytest.raises(runner.NativeUnavailable, match="exact precision"):
+    STATS.reset()
+    got = list(runner.call_pair(str(d / "tumor.bam"), str(d / "normal.bam"),
+                                str(d / "ref.fa"), "vcf", precision="exact",
+                                device=CPU))
+    assert STATS.snapshot().get("batches_dispatched", 0) > 0
+    want = [ln for ln in filtered_lines(d / "expected.vcf")
+            if not ln.startswith("#")]
+    assert [ln.rstrip("\n") for ln in got] == want
+    with pytest.raises(ValueError, match="name one"):
         list(runner.call_pair(str(d / "tumor.bam"), str(d / "normal.bam"),
                               str(d / "ref.fa"), "vcf", precision="exact"))
     with pytest.raises(runner.NativeUnavailable, match="windowed driver"):
         list(sharded.call_pair_windows(
             str(d / "tumor.bam"), str(d / "normal.bam"), str(d / "ref.fa"),
             "vcf", precision="fast", device=CPU))
-    # the CLI reports either as an error, exit 1
-    for extra in (["--precision", "exact"],
-                  ["--precision", "fast", "--shard-index", "0"]):
-        assert main(["--device", "cpu", *extra, *args,
-                     str(tmp_path / "x")]) == 1
-        assert "needs the native host library" in capsys.readouterr().err
+    # the CLI: exact runs, a windowed run reports an error, exit 1
+    out = tmp_path / "x.vcf"
+    assert main(["--device", "cpu", "--precision", "exact", *args,
+                 str(out)]) == 0
+    assert filtered_lines(out) == filtered_lines(d / "expected.vcf")
+    capsys.readouterr()
+    assert main(["--device", "cpu", "--precision", "fast", "--shard-index",
+                 "0", *args, str(tmp_path / "y")]) == 1
+    assert "needs the native host library" in capsys.readouterr().err
     assert set(gk.LAUNCHES.values()) == {0}
 
 

@@ -326,3 +326,81 @@ def test_accumulate_card_ranks_by_raw_eff(dev):
     assert torch.equal(k[2], p[2]) and torch.equal(k[4], p[4])
     _assert_sums(k, p, 3)
     assert abs(float(k[0][0, 0]) - 35.4868) < 1e-4
+
+
+@pytest.mark.parametrize("B,D", [(300, 40), (64, 300)])
+def test_exact_glfgen_card_equals_cpu(dev, B, D):
+    """The f64 exact glfgen gives the same bits on the card as on the
+    CPU (no fused multiply-add, IEEE sqrt and division), the c_tot > 255
+    rescale included."""
+    from somatic_sniper_tpu_torch.models.glfgen import (ColumnBatch,
+                                                        glfgen_batch)
+
+    slots, depth, ref16 = random_u32(B, D, seed=D)
+    if D > 255:
+        depth[:8] = D
+        slots[:8] = (slots[:8] | (30 << 8) | 40) & ~np.uint32(1 << 21)
+    tabs = T.build_tables(T.ModelParams())
+    res = []
+    for where in (torch.device("cpu"), dev):
+        cb = ColumnBatch(*(torch.from_numpy(a).to(where) for a in
+                           (slots.view(np.int32), depth, ref16)))
+        res.append(glfgen_batch(cb, device_tables(tabs, where, "exact"), 60,
+                                "exact"))
+    for name, a, b in zip(res[0]._fields, *res):
+        assert b.device == dev
+        assert torch.equal(a, b.cpu()), name
+    if D > 255:
+        assert int(res[1].depth.max()) > 255
+
+
+def test_cli_exact_on_card_without_native_golden(dev, tmp_path, monkeypatch):
+    from somatic_sniper_tpu_torch.cli.main import main
+    from somatic_sniper_tpu_torch.io import native_api
+    from somatic_sniper_tpu_torch.utils.stats import STATS
+
+    monkeypatch.setattr(native_api, "available", lambda: False)
+    out = tmp_path / "exact.vcf"
+    STATS.reset()
+    assert main(["--precision", "exact", "--device", "cuda", "-F", "vcf",
+                 "-f", str(DATA / "small.fa"), str(DATA / "t-small.bam"),
+                 str(DATA / "n-small.bam"), str(out)]) == 0
+    assert STATS.snapshot().get("batches_dispatched", 0) > 0
+    assert filtered_lines(out) == filtered_lines(DATA / "expected.vcf")
+
+
+@pytest.mark.parametrize("encoding,B,D", [("u32", 4099, 40),
+                                          ("raw32", 8192, 48)])
+def test_split_over_two_streams_equals_unsplit(dev, encoding, B, D):
+    """sharded_call_batch over [card, card]: two parts on two streams,
+    uploaded from the host, every field equal to the unsplit call."""
+    from somatic_sniper_tpu_torch.models.glfgen import ColumnBatch
+    from somatic_sniper_tpu_torch.parallel.sharding import sharded_call_batch
+    from somatic_sniper_tpu_torch.runner import dtabs_for
+
+    params = T.ModelParams(min_somatic_qual=0)
+    batches = []
+    for seed in (3, 4):
+        if encoding == "raw32":
+            s, nk, d, r = random_raw32(B, D, seed)
+            batches.append([s.view(np.int32), d, r, nk])
+        else:
+            s, d, r = random_u32(B, D, seed)
+            batches.append([s.view(np.int32), d, r])
+    batches[1][2] = batches[0][2]
+    host = [ColumnBatch(*(torch.from_numpy(a) for a in b)) for b in batches]
+    card = [ColumnBatch(*(None if t is None else t.to(dev) for t in cb))
+            for cb in host]
+    want = ts.call_batch(*card, device_tables(T.build_tables(params), dev),
+                         params)
+    before = sum(gk.LAUNCHES.values())
+    for pair in (host, card):
+        got = sharded_call_batch([dev, dev], *pair, dtabs_for(params, "fast"),
+                                 params)
+        torch.cuda.synchronize()
+        for name, a, b in zip(want._fields, got, want):
+            assert (a is None) == (b is None), name
+            if a is not None:
+                assert a.device == dev and torch.equal(a, b), name
+    assert sum(gk.LAUNCHES.values()) - before == 8
+    assert int(want.emit.sum()) > 0

@@ -134,10 +134,17 @@ def test_device_cuda_without_cuda_exits_1(data_dir, tmp_path, monkeypatch,
     (["--merge", "collective"], "--merge collective"),
 ])
 def test_unported_options_exit_1(data_dir, tmp_path, capsys, args, what):
-    rc = main([*args, "--device", "cpu", *_golden_args(data_dir),
-               str(tmp_path / "x")])
-    assert rc == 1
-    assert f"{what} is not yet in the torch port" in capsys.readouterr().err
+    """The options the port once refused with exit 1 (the test keeps its
+    name) now run: ``--jobs 2`` spawns two shard workers and merges
+    their outputs, ``--merge collective`` without a coordinator is a
+    plain single-process run; both give sim1's golden bytes."""
+    d = data_dir / "e2e" / "sim1"
+    out = tmp_path / "x.vcf"
+    rc = main([*args, "--device", "cpu", "-F", "vcf", "-f", str(d / "ref.fa"),
+               str(d / "tumor.bam"), str(d / "normal.bam"), str(out)])
+    assert rc == 0
+    assert "not yet in the torch port" not in capsys.readouterr().err
+    assert filtered_lines(out) == filtered_lines(d / "expected.vcf")
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

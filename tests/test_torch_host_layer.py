@@ -433,3 +433,30 @@ def test_usage_text_identical_apart_from_the_program_name():
     assert po.usage_text() == ja.usage_text().replace(
         "bam-somaticsniper-tpu", po.PROG)
     assert isinstance(po._commit_id(), str) and po._commit_id()
+
+
+SCRIPT_FILES = ["__init__", "fpfilter", "highconfidence", "merge_shards",
+                "prepare_for_readcount", "readcount", "snpfilter"]
+
+
+@pytest.mark.parametrize("name", SCRIPT_FILES)
+def test_script_copy_is_its_source(name):
+    """Each file of the port's ``scripts/`` is its source's code: the
+    same syntax tree once the module docstring is set aside, and a
+    docstring that names the file it was copied from."""
+    import ast
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    trees = []
+    for pkg in (JAX_PKG, PORT_PKG):
+        tree = ast.parse((root / pkg / "scripts" / f"{name}.py").read_text())
+        if tree.body and ast.get_docstring(tree) is not None:
+            tree.body = tree.body[1:]
+        trees.append(ast.dump(tree))
+    assert trees[0] == trees[1]
+    doc = ast.get_docstring(ast.parse(
+        (root / PORT_PKG / "scripts" / f"{name}.py").read_text()))
+    assert "somatic_sniper_tpu/scripts/" in doc
+    if name != "__init__":
+        assert f"somatic_sniper_tpu/scripts/{name}.py" in doc
