@@ -60,7 +60,25 @@ closing ``{"ok": true, ...}`` line is never printed):
     library missing, exact, equal to ``tests/data/expected.vcf``;
 12. ``sharded_call_batch`` over ``[cuda:0, cuda:0]`` (two streams) at
     (65536, 40) full-u32 and (8192, 48) raw lanes equal to the unsplit
-    call, and ``dryrun_multichip`` over as many GPUs as the machine has.
+    call, and ``dryrun_multichip`` over as many GPUs as the machine has;
+13. ``utils.mfu.bench_kernel`` on the card at (8192, 48), the production
+    slab, and at (32768, 64): every step launched ``glfgen32`` twice and
+    no stand-alone kernel, one step's rows equal those of the same step
+    through the plain versions on the card; step time, rate, both FLOP
+    counts, the three bounds and the verdict printed;
+14. ``parallel.dryrun.entry()`` on the card: ``fn(*args)`` launches
+    ``glfgen`` twice and every field equals ``entry("cpu")``'s (integer
+    fields; a histogram of differences is printed if any);
+15. records and ``prefilter``: the 10 Mb pair through
+    ``call_pair_windows(fmt=None)``, its ``SniperRecord`` objects
+    formatted by ``output.formatters`` byte-equal to phase 4's fast
+    output; then ``prefilter=False``: the same bytes again while every
+    column of the pair is scored, with the card's share of them, the
+    slab depth and the stage times;
+16. a card only where a path needs one: with ``CUDA_VISIBLE_DEVICES``
+    empty and the default ``--device``, the exact CLI on the golden pair
+    exits 0 with the golden bytes and never imports torch, and the fast
+    CLI exits 1 with the device's message.
 
 Its first statements make ``import jax`` and ``import somatic_sniper_tpu``
 fail, so a pass also shows that the port needs neither; it imports only
@@ -893,20 +911,34 @@ def jobs_runs(common: list[str], out_dir: Path, fast_lines: list[str],
     for jobs in (1, 2, 4):
         out = out_dir / f"jobs{jobs}.vcf"
         t0 = time.perf_counter()
+        # the spawn time lets the parent report its own imports; it
+        # stamps a new one for its workers
         err, = finish_cli([start_cli(
             ["--precision", "fast", "--device", "cuda", "--jobs", str(jobs),
-             *common, str(out)], {})], 600)
+             *common, str(out)],
+            {"SNIPER_JOBS_SPAWNED_AT": repr(time.time())})], 600)
         wall = time.perf_counter() - t0
         if body_lines(out) != fast_lines:
             raise AssertionError(f"--jobs {jobs} gave other bytes than the "
                                  "single process")
         workers = parse_summaries(err)
+        # --jobs N > 1: the parent, which scores nothing, reports too
+        parents = [b for b in workers if "jobs_workers" in b]
+        workers = [b for b in workers if "jobs_workers" not in b]
         launches[jobs] = check_scored_on_card(workers, min(jobs, ncpu),
                                               f"--jobs {jobs}")
         print(f"  --jobs {jobs}: wall {wall:.3f} s ({n_cols / wall:.0f} "
               f"cols/s), bytes equal to phase 4's fast output; glfgen32 "
               f"launches {[b['launches_glfgen32'] for b in workers]}",
               flush=True)
+        for b in parents:
+            print(f"    parent: the interpreter and the imports "
+                  f"{b.get('worker_startup.imports', 0):.3f} s (no torch), "
+                  f"both builds {b.get('jobs.build', 0):.3f} s, waiting for "
+                  f"its workers {b.get('jobs.workers', 0):.3f} s", flush=True)
+        if jobs > 1 and len(parents) != 1:
+            raise AssertionError(f"--jobs {jobs}: {len(parents)} parent "
+                                 "summaries")
         for i, b in enumerate(workers):
             if jobs > 1 and "worker_startup" not in b:
                 raise AssertionError(f"worker {i} reported no start-up")
@@ -1056,6 +1088,236 @@ def split_batches(dtabs, dev, torch) -> dict:
               f"{unsplit_ms:.3f} ms", flush=True)
     dryrun_multichip(torch.cuda.device_count())
     return total
+
+
+# fields that pass through the f32 class sums: the kernel and its plain
+# version add them in another order, so these may differ by one
+# quantisation step (the fast contract); every other field must be equal
+PM1_FIELDS = ("tumor_cnsq", "normal_cnsq", "tumor_vaq", "normal_vaq",
+              "somatic_score", "joint_cnsq")
+
+
+def step_diff(got, want, torch) -> dict:
+    """Histogram ``{field+-delta: columns}`` of a CallResult against
+    another; raises on any difference outside the fast contract."""
+    hist = {}
+    for name, a, b in zip(got._fields, got, want):
+        diff = (a.to(torch.int64) - b.to(torch.int64)).flatten()
+        for d in diff[diff != 0].tolist():
+            hist[f"{name}{d:+d}"] = hist.get(f"{name}{d:+d}", 0) + 1
+            if name not in PM1_FIELDS or abs(d) > 1:
+                raise AssertionError(f"{name} differs by {d}")
+    return hist
+
+
+def bench_kernel_on_card(dev, torch) -> None:
+    """Phase 13: the scoring step's microbenchmark on the card."""
+    import numpy as np
+
+    from somatic_sniper_tpu_torch.models import glfgen as mg
+    from somatic_sniper_tpu_torch.models.somatic import (
+        call_batch, call_batch_packed, packed_column_batches)
+    from somatic_sniper_tpu_torch.models.tables import (ModelParams,
+                                                        build_tables,
+                                                        device_tables)
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+    from somatic_sniper_tpu_torch.utils import mfu
+
+    params = ModelParams()
+    dtabs = device_tables(build_tables(params), dev, "fast")
+    for B, D in ((8192, 48), (32768, 64)):
+        gk.reset_launches()
+        r = mfu.bench_kernel(B=B, D=D, iters=16)
+        others = {k: v for k, v in gk.LAUNCHES.items()
+                  if v and k != "glfgen32"}
+        if (r.steps_run < 40 or gk.LAUNCHES["glfgen32"] != 2 * r.steps_run
+                or others or r.kernel_launches != {"glfgen32": 2}):
+            raise AssertionError(
+                f"bench_kernel at {(B, D)}: {r.steps_run} steps launched "
+                f"{gk.LAUNCHES}, a step {r.kernel_launches}")
+        stacked_h, meta_h = mfu.bench_inputs(B, D)
+        stacked = torch.from_numpy(stacked_h.view(np.int32)).to(dev)
+        meta = torch.from_numpy(meta_h).to(dev)
+        cbs = packed_column_batches(stacked, meta)
+        got = (call_batch_packed(stacked, meta, dtabs, params),
+               call_batch(*cbs, dtabs, params))
+        kernel, mg.glfgen32 = mg.glfgen32, gk.glfgen32_plain
+        try:
+            want = (call_batch_packed(stacked, meta, dtabs, params),
+                    call_batch(*cbs, dtabs, params))
+        finally:
+            mg.glfgen32 = kernel
+        torch.cuda.synchronize()
+        # the benchmark's tumor and normal differ in one baseQ bit, so
+        # few sites or none emit: hold the emitted rows, then every
+        # column's full result
+        count = int(got[0].count)
+        if (count != int(want[0].count)
+                or not torch.equal(got[0].rows[:count], want[0].rows[:count])):
+            raise AssertionError(f"one step at {(B, D)}: the rows through "
+                                 "the kernel differ from the plain versions'")
+        hist = step_diff(got[1], want[1], torch)
+        print(f"  B={B} D={D}: step {r.measured_slab_s * 1e3:.4f} ms, "
+              f"{r.cols_per_sec:.0f} pair-columns/s; FLOPs a pair-column "
+              f"{r.port_flops_per_col:.0f} by the port's count "
+              f"({r.flops_per_col:.0f} by the JAX package's), "
+              f"{r.tflops:.5f} TFLOP/s, est_mfu {r.est_mfu:.6f} of the f32 "
+              f"peak; bounds: f32 {r.bound_compute_s * 1e3:.5f} ms, bytes "
+              f"{r.bound_hbm_s * 1e3:.5f} ms, launches "
+              f"{r.bound_launch_s * 1e3:.4f} ms ({r.launches_per_step} "
+              f"device operations a step, glfgen32 twice among them, at "
+              f"{r.launch_floor_s * 1e6:.2f} us an empty launch), the host "
+              f"queues a step in {r.host_queue_s * 1e3:.4f} ms; {count} "
+              f"emitted rows equal to the plain versions', the "
+              f"{len(got[1])} fields of {B} columns inside the fast "
+              f"contract, hist {json.dumps(hist, sort_keys=True)}; verdict: "
+              f"{r.verdict}", flush=True)
+
+
+def entry_on_card(torch) -> None:
+    """Phase 14: the forward step of ``entry()`` on the card against
+    ``entry("cpu")``."""
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+    from somatic_sniper_tpu_torch.parallel.dryrun import entry
+
+    fn, args = entry()
+    if args[0].slots.device.type != "cuda":
+        raise AssertionError(f"entry() put its batches on "
+                             f"{args[0].slots.device}")
+    gk.reset_launches()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    if gk.LAUNCHES["glfgen"] != 2 or sum(gk.LAUNCHES.values()) != 2:
+        raise AssertionError(f"entry()'s step launched {gk.LAUNCHES}")
+    fn_cpu, args_cpu = entry("cpu")
+    want = fn_cpu(*args_cpu)
+    hist = {}
+    for name, a, b in zip(got._fields, got, want):
+        if a is None and b is None:
+            continue
+        diff = (a.cpu().to(torch.int64) - b.to(torch.int64)).flatten()
+        for d in diff[diff != 0].tolist():
+            hist[f"{name}{d:+d}"] = hist.get(f"{name}{d:+d}", 0) + 1
+    if hist:
+        raise AssertionError("entry() on the card differs from entry('cpu')"
+                             f": {json.dumps(hist, sort_keys=True)}")
+    print(f"  entry(): fn(*args) on {args[0].slots.device} launched glfgen "
+          f"twice; all {len(got._fields)} fields of "
+          f"{got.emit.shape[0]} columns equal to entry('cpu')'s, "
+          f"{int(got.emit.sum())} emitted", flush=True)
+
+
+def records_and_prefilter(pair: Path, out_dir: Path, fast_lines: list[str],
+                          n_cols: int, dev) -> dict:
+    """Phase 15: the windowed driver's record objects, then the run with
+    the prefilter off, both on the 10 Mb pair, fast on the card, both
+    held to phase 4's fast output byte for byte.  Returns the launches
+    of the prefilter-off run."""
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+    from somatic_sniper_tpu_torch.output.formatters import get_formatter
+    from somatic_sniper_tpu_torch.output.records import (HeaderData,
+                                                         SniperRecord)
+    from somatic_sniper_tpu_torch.parallel.sharded import call_pair_windows
+    from somatic_sniper_tpu_torch.utils.stats import STATS
+
+    args = (str(pair / "tumor.bam"), str(pair / "normal.bam"),
+            str(pair / "ref.fa"))
+    header_fn, record_fn = get_formatter("vcf")
+    hdata = HeaderData(refseq=args[2], normal_sample_id="NORMAL",
+                       tumor_sample_id="TUMOR")
+    launches = {}
+    for what, kw in (("fmt=None", dict(fmt=None)),
+                     ("prefilter=False", dict(fmt="vcf", prefilter=False))):
+        out = out_dir / f"windows_{what.split('=')[0]}.vcf"
+        STATS.reset()
+        gk.reset_launches()
+        t0 = time.perf_counter()
+        n_recs = 0
+        with open(out, "w") as fh:
+            header_fn(fh, hdata)
+            for _wi, _win, recs in call_pair_windows(
+                    *args, precision="fast", device=dev, **kw):
+                n_recs += len(recs)
+                if kw["fmt"] is None:
+                    for rec in recs:
+                        if not isinstance(rec, SniperRecord):
+                            raise AssertionError(f"fmt=None gave {type(rec)}")
+                        record_fn(fh, rec)
+                else:
+                    fh.writelines(recs)
+        wall = time.perf_counter() - t0
+        stats = STATS.snapshot()
+        launches = dict(gk.LAUNCHES)
+        if body_lines(out) != fast_lines:
+            raise AssertionError(f"{what}: other bytes than phase 4's fast "
+                                 "output")
+        print(f"  {what}: {n_recs} records, wall {wall:.3f} s "
+              f"({n_cols / wall:.0f} cols/s), bytes equal to phase 4's fast "
+              "output", flush=True)
+        print_digest(body_lines(out))
+        slabs = int(stats.get("slabs_dispatched", 0))
+        if launches["glfgen32"] != 2 * slabs or slabs == 0:
+            raise AssertionError(f"{what}: {slabs} slabs launched {launches}")
+    scored = {k: int(stats.get(k, 0)) for k in
+              ("device_columns", "host_deep_columns", "host_tail_columns")}
+    if sum(scored.values()) != n_cols:
+        raise AssertionError(f"prefilter=False scored {scored}, the pair has "
+                             f"{n_cols} columns")
+    depths = sorted(int(k.rsplit("_", 1)[1]) for k in stats
+                    if k.startswith("slabs_at_depth_"))
+    print("  stage times of the prefilter=False run:\n" + STATS.summary(),
+          flush=True)
+    print(f"  prefilter=False: every one of the pair's {n_cols} columns "
+          f"scored: {scored}; the card's share "
+          f"{scored['device_columns'] / n_cols:.4%}, host_deep share "
+          f"{scored['host_deep_columns'] / n_cols:.4%}; slabs "
+          f"{slabs} at depth {depths}, glfgen32 launches "
+          f"{launches['glfgen32']}", flush=True)
+    return launches
+
+
+NO_TORCH_CHILD = """\
+import sys
+sys.modules["jax"] = None
+sys.modules["somatic_sniper_tpu"] = None
+from somatic_sniper_tpu_torch.cli.main import main
+rc = main(sys.argv[1:])
+if rc == 0 and "torch" in sys.modules:
+    sys.exit("the run imported torch")
+sys.exit(rc)
+"""
+
+
+def cli_without_a_card(out_dir: Path) -> None:
+    """Phase 16: the default ``--device`` where no card is visible.  The
+    exact run needs none (and no torch); the fast run stops with the
+    device's message."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    inputs = ["-F", "vcf", "-f", str(GOLDEN / "small.fa"),
+              str(GOLDEN / "t-small.bam"), str(GOLDEN / "n-small.bam")]
+    walls = {}
+    for precision, want_rc in (("exact", 0), ("fast", 1)):
+        out = out_dir / f"no_card_{precision}.vcf"
+        out.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-c", NO_TORCH_CHILD, "--precision", precision,
+             *inputs, str(out)],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+        walls[precision] = time.perf_counter() - t0
+        if r.returncode != want_rc:
+            raise AssertionError(f"{precision} CLI without a card exited "
+                                 f"{r.returncode}:\n{r.stderr[-2000:]}")
+        if precision == "exact":
+            if body_lines(out) != body_lines(GOLDEN / "expected.vcf"):
+                raise AssertionError("exact without a card differs from "
+                                     "tests/data/expected.vcf")
+        elif "no CUDA device is available" not in r.stderr or out.exists():
+            raise AssertionError(f"fast without a card: {r.stderr[-2000:]}")
+    print(f"  CUDA_VISIBLE_DEVICES='', default --device: exact exits 0 with "
+          f"the golden bytes and without importing torch "
+          f"({walls['exact']:.3f} s, child process); fast exits 1 with the "
+          f"device's message ({walls['fast']:.3f} s)", flush=True)
 
 
 def run_cli(args: list[str]) -> float:
@@ -1255,6 +1517,19 @@ def main() -> int:
     phase("12 the batch split over devices, and the dry run")
     launches_split = split_batches(dtabs, dev, torch)
 
+    phase("13 bench_kernel: the scoring step on the card")
+    bench_kernel_on_card(dev, torch)
+
+    phase("14 entry(): the forward step on the card against the CPU")
+    entry_on_card(torch)
+
+    phase("15 records (fmt=None) and prefilter=False: 10 Mb pair, fast")
+    launches_nopf = records_and_prefilter(pair, out_dir, fast_lines, n_cols,
+                                          dev)
+
+    phase("16 the default --device with no card visible")
+    cli_without_a_card(out_dir)
+
     # each kernel's launches from the phase that ran it, its times at
     # the main shape of its path (phase 8)
     runs = {
@@ -1304,7 +1579,10 @@ def main() -> int:
                           **{f"jobs_{n}": v
                              for n, v in launches_jobs.items()},
                           "collective_2": launches_coll,
-                          "split_2_streams": launches_split}}), flush=True)
+                          "split_2_streams": launches_split,
+                          "windows_prefilter_off": {
+                              "glfgen32": launches_nopf["glfgen32"]}}}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,6 +13,17 @@ in pure Python and scores batches on the device (u16 batches in fast
 precision, full-u32 batches through the f64 glfgen in exact); the
 windowed path needs the library's region loads, as in the JAX
 package.
+
+The device rule: ``--device`` names the device (``cuda`` by default),
+and it is resolved where a path first needs one: at once in fast
+precision, and in exact precision only when a run or a window cannot be
+scored by the native host layer (no native library, no reference).  A
+CUDA device that is named and absent ends the run with exit 1 and
+``device.py``'s message; nothing carries on on the CPU unless ``--device
+cpu`` was given.  So the default exact run needs no card, and neither it,
+nor ``-v``, a usage error or the ``--jobs`` parent imports torch (the
+parent builds both libraries and learns of a missing card from its
+workers' exit codes and messages).
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ import sys
 import time
 
 from .. import __version__
+from ..device import DeviceUnavailable, resolve_device
 from ..io.bam import read_bam_header
 from ..models.tables import ModelParams
 from ..output.formatters import FORMATTERS, get_formatter
@@ -263,7 +275,9 @@ def _run_jobs(args) -> int:
     (SNIPER_LOAD_POOL=1) when N workers x 2 load threads would
     oversubscribe the host's cores.  Both libraries are built before
     the workers start, so that N workers do not each run the
-    compilers."""
+    compilers.  With ``--stats`` the parent adds a summary of its own
+    (``jobs.build``, ``jobs.workers``, the ``jobs_workers`` count, and its
+    ``worker_startup.imports`` when its own spawn time was given)."""
     import subprocess
     import tempfile
 
@@ -279,11 +293,19 @@ def _run_jobs(args) -> int:
         args.jobs = ncpu
     if args.jobs <= 1:
         args.jobs = 1
-    native.get_lib()
-    if args.device == "cuda":
-        from ..ops import build
+    with run_stats.STATS.timer("jobs.build"):
+        native.get_lib()
+        if args.device == "cuda" and args.precision == "fast":
+            # exact workers score in the native layer and launch no
+            # kernel.  ops.build imports no torch: nvcc, then ctypes at
+            # first use
+            from ..ops import build
 
-        build.build()
+            try:
+                build.build()
+            except RuntimeError as e:  # no nvcc, or a compile error
+                print(f"{PROG}: {e}", file=sys.stderr)
+                return 1
 
     base = [
         sys.executable, "-m", "somatic_sniper_tpu_torch.cli.main",
@@ -318,8 +340,13 @@ def _run_jobs(args) -> int:
         for i in range(args.jobs)
     ]
     rc = 0
-    for p in procs:
-        rc = rc or p.wait()
+    with run_stats.STATS.timer("jobs.workers"):
+        for p in procs:
+            rc = rc or p.wait()
+    if args.stats or run_stats.enabled():
+        run_stats.STATS.add("jobs_workers", args.jobs)
+        sys.stderr.write(run_stats.STATS.summary() + "\n")
+        sys.stderr.flush()
     try:
         if rc:
             print(f"--jobs worker failed (exit {rc})", file=sys.stderr)
@@ -375,13 +402,6 @@ def _main(args) -> int:
     if not args.ref:
         print("You MUST specify a reference sequence. It isn't optional.",
               file=sys.stderr)
-        return 1
-    from ..device import resolve_device
-
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        print(f"{PROG}: {e}", file=sys.stderr)
         return 1
     if args.tumor_bam == "-":
         # tumor BAM from stdin (reference main.c:128): spool to a temp
@@ -444,16 +464,22 @@ def _main(args) -> int:
         # _run_collective (returns the code + hard flag) so the failure
         # semantics are unit-testable in-process; output and manifest
         # are flushed before every hard exit.
-        rc, hard = _run_collective(args, params, header_fn, hdata, device,
-                                   num, pid)
+        try:
+            rc, hard = _run_collective(args, params, header_fn, hdata,
+                                       args.device, num, pid)
+        except DeviceUnavailable as e:
+            print(f"{PROG}: {e}", file=sys.stderr)
+            sys.stderr.flush()
+            rc, hard = 1, True
         if hard:
             os._exit(rc)
         return rc
     try:
-        return _run(args, params, header_fn, hdata, device)
-    except (OSError, ValueError, NativeUnavailable) as e:
+        return _run(args, params, header_fn, hdata, args.device)
+    except (OSError, ValueError, NativeUnavailable, DeviceUnavailable) as e:
         # fail fast with a message, like the reference's exit paths
-        # (truncated/corrupt/unsorted inputs, malformed .fai, ...)
+        # (truncated/corrupt/unsorted inputs, malformed .fai, ...); a
+        # named CUDA device that is absent ends here too, and only here
         print(f"{PROG}: {e}", file=sys.stderr)
         return 1
 
@@ -465,11 +491,14 @@ def _run_collective(args, params, header_fn, hdata, device,
     means the caller must ``os._exit`` (a peer may be dead and the
     process group's teardown would hang; see _main).  Every failure
     leaves the shard output + manifest on disk so a re-run with the
-    same manifests resumes."""
+    same manifests resumes.  A missing device is not handled here: it
+    passes through to _main."""
     real_out = args.output
     args.output = f"{real_out}.shard{pid}"
     try:
         rc = _run(args, params, header_fn, hdata, device)
+    except DeviceUnavailable:
+        raise
     except (OSError, ValueError, NativeUnavailable) as e:
         print(f"{PROG}: {e}", file=sys.stderr)
         sys.stderr.flush()
@@ -541,6 +570,12 @@ def _use_windowed(args) -> bool:
 
 
 def _run(args, params, header_fn, hdata, device) -> int:
+    """``device`` is the device's name (or a ``torch.device``).  Fast
+    precision needs it for certain and resolves it before the output is
+    opened; exact precision hands the name on, and the drivers resolve it
+    only if a run or a window needs it."""
+    if args.precision == "fast":
+        device = resolve_device(device)
     if not _use_windowed(args):
         from ..runner import call_pair
 
@@ -588,9 +623,10 @@ def _run(args, params, header_fn, hdata, device) -> int:
             if n_done == 0:  # a shard with no window to score
                 _record_startup()
     if args.stats or run_stats.enabled():
-        from ..ops.glfgen_kernels import LAUNCHES
-
-        for kernel, n in LAUNCHES.items():
+        # a run that never loaded the kernels' module launched none
+        kernels = sys.modules.get(
+            "somatic_sniper_tpu_torch.ops.glfgen_kernels")
+        for kernel, n in (kernels.LAUNCHES.items() if kernels else ()):
             if n:
                 run_stats.STATS.add(f"launches_{kernel}", n)
         # one write, so that the summaries of --jobs workers, which share

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops.glfgen_kernels import (MAX_D, accumulate, accumulate16,
@@ -77,6 +78,24 @@ class ColumnBatch(NamedTuple):
                 raise ValueError("u16 lanes need the host's rms_sum")
             return "u16"
         return "raw32"
+
+
+SLOT_BASEQ_SHIFT = 8
+SLOT_BASE16_SHIFT = 16
+SLOT_STRAND_SHIFT = 20
+SLOT_ISDEL_SHIFT = 21
+
+
+def pack_slots_np(base16, baseq, mapq, strand, is_del):
+    """Host-side slot packing (numpy), copied from
+    somatic_sniper_tpu/models/glfgen.py:94-102."""
+    return (
+        np.asarray(mapq, np.uint32)
+        | (np.asarray(baseq, np.uint32) << SLOT_BASEQ_SHIFT)
+        | (np.asarray(base16, np.uint32) << SLOT_BASE16_SHIFT)
+        | (np.asarray(strand, np.uint32) << SLOT_STRAND_SHIFT)
+        | (np.asarray(is_del, np.uint32) << SLOT_ISDEL_SHIFT)
+    )
 
 
 class GlfResult(NamedTuple):

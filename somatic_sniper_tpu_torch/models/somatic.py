@@ -23,6 +23,7 @@ from .allele_util import (
     should_filter_as_loh,
 )
 from .consensus import glf2cns_batch, make_qadd, somatic_score_batch
+from .fields import COMPACT_FIELDS  # noqa: F401  (re-exported)
 from .glfgen import ColumnBatch, glfgen_batch
 from .tables import DeviceTables, ModelParams
 
@@ -31,17 +32,6 @@ F32 = torch.float32
 
 # the packed slab metadata carries depths and counts in bytes
 MAX_D = 255
-
-# host-side field order of the compacted rows (the JAX package's order,
-# somatic_sniper_tpu/models/somatic.py:279-285); the leading columns
-# are the batch index of each emitted site
-COMPACT_FIELDS = (
-    "tumor_gt", "normal_gt", "tumor_cnsq", "normal_cnsq",
-    "tumor_vaq", "normal_vaq", "somatic_score",
-    "joint_tumor_gt", "joint_normal_gt", "joint_cnsq",
-    "tumor_status", "normal_status", "tumor_eff_gt", "normal_eff_gt",
-    "tumor_depth", "normal_depth",
-)
 
 
 class CallResult(NamedTuple):

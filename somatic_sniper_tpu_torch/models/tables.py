@@ -6,7 +6,9 @@ somatic_sniper_tpu/models/tables.py (``ModelParams``, ``ModelTables``,
 imports nothing of the JAX package.  The second (``DeviceTables``, a
 port of the JAX runner's DeviceTables) moves the tables to a device once
 per ``(params, device)`` and derives the rank-weight table and the
-per-depth cuts the kernels read.
+per-depth cuts the kernels read.  Only that second part touches torch,
+and imports it where a tensor is first made: the host precompute serves
+the all-host exact run, which needs no torch at all.
 
 Host-side precompute of the MAQ consensus-model tables.
 
@@ -46,7 +48,6 @@ import math
 import threading
 
 import numpy as np
-import torch
 
 from ..constants import (GLF_BASE, IS_HET, IS_HOM, PHRED_CONST,
                          THETA_POP, log_phred)
@@ -333,6 +334,8 @@ class DeviceTables:
 
     def __init__(self, tabs: ModelTables, device: torch.device,
                  precision: str = "fast"):
+        import torch
+
         def put(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a)).to(
                 device=device, dtype=dtype)
@@ -384,4 +387,6 @@ def device_tables(tabs: ModelTables, device,
     """Process-wide DeviceTables cache keyed by ``(params, device,
     precision)``: the coef upload (16 MiB in f32, 32 MiB in f64) is paid
     once, not once per run."""
+    import torch
+
     return _device_tables(tabs.params, torch.device(device), precision)

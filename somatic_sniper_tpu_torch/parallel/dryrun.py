@@ -1,14 +1,19 @@
-"""Dry run of the multi-device path on tiny shapes.
+"""Entry points on tiny shapes: the single-device forward step and the
+dry run of the multi-device path.
 
-Port of ``dryrun_multichip`` of the JAX package's ``__graft_entry__.py``
-(:62-154): the batch split on a tiny batch against the unsplit call, the
-interval partition, then the golden pair through ``call_pair`` with the
-production dispatch split over the devices, once at the default slab
-size and once at ``SNIPER_SLAB_B=1023`` (a slab that does not divide
-goes unsplit, and must give the same lines).
+Port of the JAX package's ``__graft_entry__.py``.  ``entry`` (:32-59)
+gives ``(fn, example_args)``: the fast ``call_batch`` on two tiny
+full-u32 batches on the device, which launches ``glfgen`` on a card.
+``dryrun_multichip`` (:62-154): the batch split on a tiny batch against
+the unsplit call, the interval partition, then the golden pair through
+``call_pair`` with the production dispatch split over the devices, once
+at the default slab size and once at ``SNIPER_SLAB_B=1023`` (a slab that
+does not divide goes unsplit, and must give the same lines).
 
     python -c "from somatic_sniper_tpu_torch.parallel.dryrun import \\
         dryrun_multichip; dryrun_multichip(2, 'cpu')"
+    python -c "from somatic_sniper_tpu_torch.parallel.dryrun import \\
+        entry; fn, args = entry('cpu'); print(int(fn(*args).emit.sum()))"
 """
 
 from __future__ import annotations
@@ -19,9 +24,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models.glfgen import ColumnBatch
+from ..device import resolve_device
+from ..models.glfgen import ColumnBatch, pack_slots_np
 from ..models.somatic import call_batch
-from ..models.tables import ModelParams
+from ..models.tables import ModelParams, build_tables, device_tables
 from ..runner import call_pair, data_mesh, dtabs_for, forced_mesh
 from ..utils.stats import STATS
 from .sharding import partition_intervals, sharded_call_batch
@@ -35,17 +41,40 @@ def tiny_batch(B: int = 64, D: int = 32, seed: int = 0) -> ColumnBatch:
     source, :8-29)."""
     rng = np.random.default_rng(seed)
     depths = rng.integers(1, D, B).astype(np.int32)
-    base16 = rng.choice([1, 2, 4, 8, 15], size=(B, D)).astype(np.uint32)
-    baseq = rng.integers(0, 60, (B, D)).astype(np.uint32)
-    mapq = rng.integers(0, 61, (B, D)).astype(np.uint32)
-    strand = rng.integers(0, 2, (B, D)).astype(np.uint32)
-    is_del = (rng.random((B, D)) < 0.02).astype(np.uint32)
-    slots = (mapq | baseq << 8 | base16 << 16 | strand << 20 | is_del << 21)
+    slots = pack_slots_np(
+        rng.choice([1, 2, 4, 8, 15], size=(B, D)),
+        rng.integers(0, 60, (B, D)),
+        rng.integers(0, 61, (B, D)),
+        rng.integers(0, 2, (B, D)),
+        rng.random((B, D)) < 0.02,
+    )
     slots = np.where(np.arange(D)[None, :] < depths[:, None], slots, 0)
     ref16 = rng.choice([1, 2, 4, 8], size=B).astype(np.int32)
     return ColumnBatch(
         slots=torch.from_numpy(slots.astype(np.uint32).view(np.int32)),
         depth=torch.from_numpy(depths), ref16=torch.from_numpy(ref16))
+
+
+def entry(device=None):
+    """``(fn, example_args)``: the forward step of the fast path, batched
+    tumor/normal scoring over pileup columns in f32, on two tiny
+    full-u32 batches (``tiny_batch`` seeds 1 and 2) with the default
+    model and no joint priors (``entry`` of the source, :32-59).
+
+    The batches and the tables lie on ``device``: the card when None
+    (``resolve_device("cuda")`` raises without one), the CPU only by
+    name.  ``fn(*example_args)`` returns the CallResult on that device;
+    on a card each call launches ``glfgen`` twice."""
+    dev = resolve_device("cuda" if device is None else device)
+    params = ModelParams()
+    dtabs = device_tables(build_tables(params), dev, "fast")
+    tb, nb = (ColumnBatch(*(t.to(dev) for t in tiny_batch(seed=seed)[:3]))
+              for seed in (1, 2))
+
+    def fn(tb, nb):
+        return call_batch(tb, nb, dtabs, params, precision="fast")
+
+    return fn, (tb, nb)
 
 
 def mesh_devices(n_devices: int, device: str = "cuda") -> list[torch.device]:

@@ -7,8 +7,9 @@ because the source's imports its device pieces from the JAX runner.
 Fast windows that can plan feed the port's ``TorchSlabDispatcher``;
 windows that cannot (no reference) go through the batch path with a
 deferred one-window collect, in either precision; exact windows with a
-reference are scored by the native host layer.  This windowed path
-needs the native region loader, as the JAX one does.
+reference are scored by the native host layer, and a run made of such
+windows alone resolves no device and imports no torch.  This windowed
+path needs the native region loader, as the JAX one does.
 
 The genome is cut into deterministic windows, each sought through the
 BAI index: constant memory at whole-genome scale, shardable across
@@ -26,6 +27,7 @@ the contig's first window).
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import os
 import threading
@@ -36,12 +38,14 @@ from typing import Iterator
 
 import numpy as np
 
+from ..device import resolve_device
 from ..io import bai, native, native_api
 from ..io.bam import BamHeader, read_bam_header
 from ..io.fasta import FastaFile
 from ..models.tables import ModelParams, build_tables, device_tables
 from ..pileup.prefilter import prefilter_tables
 from ..runner import (
+    MAX_BATCH,
     RefCache,
     _make_ref16_fn,
     _prefilter_flags,
@@ -55,7 +59,6 @@ from ..runner import (
     submit_batches,
 )
 from ..utils.stats import STATS
-from .slab import TorchSlabDispatcher
 
 DEFAULT_WINDOW = 250_000
 
@@ -144,7 +147,7 @@ def call_pair_windows(
     tumor_bam: str,
     normal_bam: str,
     ref_fasta: str | None,
-    fmt: str,
+    fmt: str | None = None,
     params: ModelParams = ModelParams(),
     precision: str = "exact",
     window_size: int = DEFAULT_WINDOW,
@@ -152,14 +155,24 @@ def call_pair_windows(
     shard_index: int | None = None,
     skip_windows: set[int] | None = None,
     device=None,
-) -> Iterator[tuple[int, tuple[int, int, int], list[str]]]:
+    max_batch: int = MAX_BATCH,
+    prefilter: bool = True,
+) -> Iterator[tuple[int, tuple[int, int, int], list]]:
     """Yield (window_index, window, output lines of ``fmt``) per genome
-    window, in window order.  Window indices are global (stable across
-    shard counts).  ``device`` scores the fast path's slabs, and the
-    batches of windows that cannot plan."""
+    window, in window order; with ``fmt`` None the third item holds
+    ``SniperRecord`` objects.  Window indices are global (stable across
+    shard counts).  ``device`` (a ``torch.device`` or its name) scores
+    the fast path's slabs, and the batches of windows that cannot plan;
+    it is resolved when the first such window arrives (fast precision:
+    at once), never by exact windows the native layer scores.
+    ``prefilter=False`` scores every column the samples share, with the
+    same output; ``max_batch`` bounds the batch path's batches."""
     require_native("the windowed driver (region loads)")
     if device is None and (precision == "fast" or not ref_fasta):
         raise ValueError(f"{precision} precision needs a device here")
+    dev = functools.cache(lambda: resolve_device(device))
+    if precision == "fast":
+        dev()  # a missing card fails the run before any load
     header = read_bam_header(tumor_bam)
     idx_t = bai.ensure_index(tumor_bam)
     idx_n = bai.ensure_index(normal_bam)
@@ -179,7 +192,7 @@ def call_pair_windows(
                           params.flag_mask, params.mapq_threshold)
 
     flag_args = None
-    if ref_blob is not None:
+    if prefilter and ref_blob is not None:
         pt = prefilter_tables(tabs)
         if pt is not None:
             gmin, margin = pt
@@ -228,7 +241,8 @@ def call_pair_windows(
                 pu_t, pu_n = f_t.result(), f_n.result()
                 plan = None
                 if can_exact_native(pu_t, pu_n, ref_blob):
-                    plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off)
+                    plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off,
+                                     prefilter, cns_mode="proof")
                 done.set_result((pu_t, pu_n, plan))
             except BaseException as e:  # surfaces on .result()
                 done.set_exception(e)
@@ -253,7 +267,15 @@ def call_pair_windows(
         f_n.add_done_callback(_on_load)
         return done
 
+    # windows in flight ahead of the one being scored; SNIPER_LOOKAHEAD
+    # overrides, a bad value is ignored (sharded.py:301-313)
     lookahead = 2 if pool_n <= 2 else (pool_n + 1) // 2 + 1
+    try:
+        lookahead = max(1, int(os.environ.get("SNIPER_LOOKAHEAD",
+                                              lookahead)))
+    except ValueError:
+        pass
+    STATS.add("lookahead_windows", lookahead)
     inflight = [_submit_window(w) for _, w in todo[:lookahead]]
 
     slab_disp = None
@@ -264,9 +286,9 @@ def call_pair_windows(
     def _collect(d):
         wi, win, pu_t, pu_n, pending = d
         records = collect_pending(pending, pu_t, pu_n, refcache,
-                                  device_tables(tabs, device, precision),
-                                  device, fmt, precision=precision)
-        return wi, win, [ln for _, ln in records]
+                                  device_tables(tabs, dev(), precision),
+                                  dev(), fmt, precision=precision)
+        return wi, win, [rec for _, rec in records]
 
     try:
         for i, (wi, (tid, beg, end)) in enumerate(todo):
@@ -286,21 +308,23 @@ def call_pair_windows(
             win = (tid, beg, end)
             if precision == "exact" and can_exact_native(pu_t, pu_n,
                                                          ref_blob):
-                lines = exact_records_native(
+                records = exact_records_native(
                     pu_t, pu_n, tabs, ref_blob, ref_off, refcache, fmt,
-                    plan=plan,
+                    plan=plan, prefilter=prefilter,
                 )
-                yield wi, win, [ln for _, ln in lines]
+                yield wi, win, [rec for _, rec in records]
                 continue
             if not can_plan(pu_t, pu_n, packed16):
                 # batch path (sharded.py:381-408)
-                drop_t, drop_n = _prefilter_flags(pu_t, pu_n, ref_blob,
-                                                  ref_off, tabs)
+                drop_t = drop_n = None
+                if prefilter:
+                    drop_t, drop_n = _prefilter_flags(pu_t, pu_n, ref_blob,
+                                                      ref_off, tabs)
                 pending = submit_batches(
                     pu_t, pu_n, refcache,
-                    device_tables(tabs, device, precision), device, drop_t,
+                    device_tables(tabs, dev(), precision), dev(), drop_t,
                     drop_n, packed16, ref16_fn, params.cap_mapq,
-                    precision=precision)
+                    max_batch=max_batch, precision=precision)
                 if slab_disp is not None:  # mode-mix ordering guard
                     yield from slab_disp.finish()
                     slab_disp = None
@@ -312,12 +336,15 @@ def call_pair_windows(
                 yield _collect(deferred)
                 deferred = None
             if slab_disp is None:
+                from .slab import TorchSlabDispatcher
+
                 slab_disp = TorchSlabDispatcher(
-                    lambda: device_tables(tabs, device), tabs, params,
-                    refcache, device, fmt,
+                    lambda: device_tables(tabs, dev()), tabs, params,
+                    refcache, dev(), fmt,
                 )
             if plan is None:
-                plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off)
+                plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off,
+                                 prefilter, cns_mode="proof")
             slab_disp.add_window(wi, win, pu_t, pu_n, plan,
                                  remaining=len(todo) - 1 - i)
             yield from slab_disp.ready()
@@ -330,10 +357,11 @@ def call_pair_windows(
         ex.shutdown(wait=True)
 
 
-def call_pair_sharded(*args, **kwargs) -> Iterator[str]:
-    """Flattened line stream over :func:`call_pair_windows`."""
-    for _, _, lines in call_pair_windows(*args, **kwargs):
-        yield from lines
+def call_pair_sharded(*args, **kwargs) -> Iterator:
+    """Flattened line (or record) stream over
+    :func:`call_pair_windows`."""
+    for _, _, recs in call_pair_windows(*args, **kwargs):
+        yield from recs
 
 
 class Manifest:

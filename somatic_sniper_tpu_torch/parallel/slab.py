@@ -167,11 +167,14 @@ class TorchSlabDispatcher:
     DeviceTables for ``device`` (lazy so a run that never dispatches,
     all windows empty, never uploads the coef table).  ``tabs`` are the
     host f64 tables for the deep-column host-side scorer.  Windows come
-    out as (window index, window, output lines of ``fmt``).
+    out as (window index, window, output lines of ``fmt``), or, with
+    ``fmt`` None, as ``SniperRecord`` objects: every row of a window,
+    from the card or from the host's deep and tail scoring, carries its
+    36 dqstats columns, which the record builder turns into ``DqStats``.
     """
 
-    def __init__(self, dtabs_fn, tabs, params, refcache, device, fmt: str,
-                 max_live_windows: int = 8):
+    def __init__(self, dtabs_fn, tabs, params, refcache, device,
+                 fmt: str | None = None, max_live_windows: int = 8):
         self.dtabs_fn = dtabs_fn
         self.tabs = tabs
         self.params = params

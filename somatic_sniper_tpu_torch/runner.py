@@ -20,6 +20,12 @@ GPU has f64 units, so here it runs on the device the caller names.
 
 With more than one visible GPU every batch and slab is split over them
 (``data_mesh``, ``parallel.sharding.sharded_call_batch``).
+
+This module imports torch, and the modules that import it, only inside
+the functions that make a tensor: the all-host exact run
+(``exact_records_native``) completes without torch, and with ``fmt``
+left None every route builds ``SniperRecord`` objects in place of text
+lines (``_build_records``).
 """
 
 from __future__ import annotations
@@ -28,24 +34,28 @@ import contextlib
 import os
 import threading
 from dataclasses import dataclass
-from typing import Iterator
+from typing import TYPE_CHECKING, Iterator
 
 import numpy as np
-import torch
 
 from .constants import NT16_TABLE
+from .device import resolve_device
 from .io import native_api
 from .io.bam import BamHeader, read_bam, read_bam_header
 from .io.fasta import FastaFile
-from .models.somatic import (COMPACT_FIELDS, CallResult, call_batch_stacked,
-                             compact_rows, stacked_column_batches)
+from .models.fields import COMPACT_FIELDS
 from .models.tables import (DeviceTables, ModelParams, build_tables,
                             device_tables)
-from .output.dqstats import get_dqstats_rows
+from .output.dqstats import (get_dqstats_batch, get_dqstats_rows,
+                             rows_to_dqstats)
+from .output.records import SampleData, SniperRecord
 from .pileup.columnize import (DEPTH_BUCKETS, PairedBatch, columnize,
                                paired_batches, split_key)
 from .pileup.prefilter import build_ref16, prefilter_tables, pure_flags
 from .utils.stats import STATS
+
+if TYPE_CHECKING:  # models.somatic imports torch
+    from .models.somatic import CallResult
 
 # rows a batch's compact result holds (runner.py:807); a batch that
 # emits more is refetched whole
@@ -97,6 +107,8 @@ def data_mesh(device) -> list | None:
     ``cuda:0..n-1``, when ``device`` is a GPU and there is more than
     one; ``SNIPER_NO_MESH`` set keeps every dispatch on ``device``
     alone."""
+    import torch
+
     if _forced_mesh is not None:
         return _forced_mesh
     if os.environ.get("SNIPER_NO_MESH"):
@@ -206,29 +218,44 @@ def device_min_cols() -> int:
     return 0
 
 
-def make_plan(pu_t, pu_n, tabs, ref_blob, ref_off):
+def make_plan(pu_t, pu_n, tabs, ref_blob, ref_off, prefilter: bool,
+              cns_mode: str = "full"):
     """One native ``paired_plan`` pass (runner.py:555-584): ukey
-    intersection, the pure-reference prefilter, the proof-only
-    dual-consensus gate (unresolved columns go on to full scoring, which
-    applies the whole gate) and depth grouping."""
-    pt = prefilter_tables(tabs)
-    gmin, margin = pt if pt is not None else (None, 0.0)
+    intersection, the pure-reference prefilter, the dual-consensus gate
+    and depth grouping.  ``cns_mode="full"`` evaluates the gate with the
+    f64 model; ``"proof"`` leaves unresolved columns to the full scoring
+    behind the plan, which applies the whole gate (every caller here
+    scores behind it, so all pass ``"proof"``).  Without ``prefilter``
+    neither the pure-reference tables nor the gate's go to the plan and
+    every common column survives.  ``SNIPER_PLAN_GATE=full|proof``
+    overrides ``cns_mode``."""
+    cns_mode = os.environ.get("SNIPER_PLAN_GATE", cns_mode)
+    gmin, margin = None, 0.0
+    coef = lhet = None
+    if prefilter:
+        pt = prefilter_tables(tabs)
+        if pt is not None:
+            gmin, margin = pt
+        coef, lhet = tabs.coef, tabs.lhet
     with STATS.timer("plan"):
         plan = native_api.paired_plan(
             pu_t, pu_n, ref_blob, ref_off, DEPTH_BUCKETS, fk=tabs.fk,
-            gmin=gmin, margin=margin, coef=tabs.coef, lhet=tabs.lhet,
-            q_r_int=tabs.q_r_int, cns_mode="proof")
+            gmin=gmin, margin=margin, coef=coef, lhet=lhet,
+            q_r_int=tabs.q_r_int, cns_mode=cns_mode)
     STATS.add("columns_scored", len(plan.keys))
     return plan
 
 
 def exact_records_native(pu_t, pu_n, tabs, ref_blob, ref_off, refcache,
-                         fmt: str, plan=None) -> list[tuple[int, str]]:
+                         fmt: str | None = None, plan=None,
+                         prefilter: bool = True) -> list[tuple[int, object]]:
     """Exact mode entirely in the native layer: plan, then full f64 and
     integer scoring of every survivor (runner.py:517-552).  Returns
-    (column key, output line) pairs in coordinate order."""
+    (column key, output line of ``fmt``) pairs in coordinate order, or
+    (column key, SniperRecord) pairs when ``fmt`` is None."""
     if plan is None:
-        plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off)
+        plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off, prefilter,
+                         cns_mode="proof")
     p = tabs.params
     with STATS.timer("score"):
         rows = native_api.exact_pair_rows(
@@ -249,19 +276,30 @@ def call_pair(
     tumor_bam: str,
     normal_bam: str,
     ref_fasta: str | None,
-    fmt: str,
+    fmt: str | None = None,
     params: ModelParams = ModelParams(),
     precision: str = "exact",
     device=None,
-) -> Iterator[str]:
-    """Whole-file run (runner.py:286-398), yielding the output lines of
-    ``fmt`` ("classic"/"vcf"/"bed") in coordinate order.  ``device`` (a
-    torch.device) scores the fast path's slabs or batches, and the exact
-    path's batches where the native host scorer does not apply (no
-    native library, no reference); exact precision with native pileups
-    and a reference never touches it."""
-    if precision == "fast" and device is None:
-        raise ValueError("fast precision needs a device")
+    max_batch: int = MAX_BATCH,
+    prefilter: bool = True,
+) -> Iterator:
+    """Whole-file run (runner.py:286-398), in coordinate order: the
+    output lines of ``fmt`` ("classic"/"vcf"/"bed"), or ``SniperRecord``
+    objects when ``fmt`` is None (formatting them gives the same bytes;
+    the lines are the cheaper bulk path).  ``prefilter=False`` scores
+    every column the two samples share; the records are the same.
+
+    ``device`` (a ``torch.device`` or its name) scores the fast path's
+    slabs or batches, and the exact path's batches where the native host
+    scorer does not apply (no native library, no reference).  It is
+    resolved where a path first needs it (``device.resolve_device``: a
+    CUDA device that is absent raises, nothing falls back to the CPU);
+    exact precision with native pileups and a reference never resolves
+    it, so that run needs neither a card nor torch."""
+    if precision == "fast":
+        if device is None:
+            raise ValueError("fast precision needs a device")
+        device = resolve_device(device)
     fasta = FastaFile(ref_fasta) if ref_fasta else None
     tabs = build_tables(params)
     flag_args = None
@@ -272,7 +310,7 @@ def call_pair(
         # pure-reference flags alongside the pileup build
         try:
             ref_blob, ref_off = _ref_blob(fasta, read_bam_header(hdr_path))
-            pt = prefilter_tables(tabs)
+            pt = prefilter_tables(tabs) if prefilter else None
             if pt is not None:
                 gmin, margin = pt
                 flag_args = (ref_blob, ref_off, tabs.fk, gmin, margin)
@@ -284,9 +322,10 @@ def call_pair(
     if ref_blob is None:
         ref_blob, ref_off = _ref_blob(fasta, header_t)
     if precision == "exact" and can_exact_native(pu_t, pu_n, ref_blob):
-        for _, line in exact_records_native(
-                pu_t, pu_n, tabs, ref_blob, ref_off, refcache, fmt):
-            yield line
+        for _, rec in exact_records_native(
+                pu_t, pu_n, tabs, ref_blob, ref_off, refcache, fmt,
+                prefilter=prefilter):
+            yield rec
         return
     # u16 batches carry '=' resolved against the reference; without
     # one the batch path ships full u32 slots, as the exact path always
@@ -296,24 +335,29 @@ def call_pair(
         if device is None:
             raise ValueError("exact precision without native pileups and a "
                              "reference scores on a device: name one")
+        device = resolve_device(device)
         dtabs = device_tables(tabs, device, precision)
-        drop_t, drop_n = _prefilter_flags(pu_t, pu_n, ref_blob, ref_off,
-                                          tabs)
+        drop_t = drop_n = None
+        if prefilter:
+            drop_t, drop_n = _prefilter_flags(pu_t, pu_n, ref_blob, ref_off,
+                                              tabs)
         ref16_fn = _make_ref16_fn(ref_blob, ref_off) if packed16 else None
         pending = submit_batches(pu_t, pu_n, refcache, dtabs, device,
                                  drop_t, drop_n, packed16, ref16_fn,
-                                 params.cap_mapq, precision=precision)
-        for _, line in collect_pending(pending, pu_t, pu_n, refcache,
-                                       dtabs, device, fmt,
-                                       precision=precision):
-            yield line
+                                 params.cap_mapq, max_batch=max_batch,
+                                 precision=precision)
+        for _, rec in collect_pending(pending, pu_t, pu_n, refcache,
+                                      dtabs, device, fmt,
+                                      precision=precision):
+            yield rec
         return
-    plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off)
+    plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off, prefilter,
+                     cns_mode="proof")
     if len(plan.keys) < device_min_cols():
-        for _, line in exact_records_native(
+        for _, rec in exact_records_native(
                 pu_t, pu_n, tabs, ref_blob, ref_off, refcache, fmt,
                 plan=plan):
-            yield line
+            yield rec
         return
     from .parallel.slab import TorchSlabDispatcher
 
@@ -392,6 +436,11 @@ def submit_call_batch(batch: PairedBatch, ref16: np.ndarray,
     no such padding, and padded rows were empty and changed no output
     (so a part may be of any size, where the source needed the batch to
     divide by the mesh)."""
+    import torch
+
+    from .models.somatic import (call_batch_stacked, compact_rows,
+                                 stacked_column_batches)
+
     B = len(batch.keys)
     stacked_h = np.stack([batch.tumor, batch.normal])
     meta_rows = [batch.n_tumor, batch.n_normal, ref16]
@@ -424,6 +473,30 @@ def submit_call_batch(batch: PairedBatch, ref16: np.ndarray,
                                   max_emit=MAX_EMIT, precision=precision)
 
 
+def run_call_batch(batch: PairedBatch, ref16: np.ndarray,
+                   dtabs: DeviceTables, device,
+                   precision: str = "fast") -> CallResult:
+    """Synchronous wrapper over submit_call_batch (runner.py:815-819):
+    the full CallResult of one batch as numpy arrays on the host, all
+    fields brought home in one copy."""
+    import torch
+
+    from .models.somatic import CallResult
+
+    res = submit_call_batch(batch, ref16, dtabs, device, compact=False,
+                            precision=precision)
+    live = {name: v for name, v in res._asdict().items() if v is not None}
+    B = len(batch.keys)
+    cols = [v.reshape(B, -1).to(torch.int32) for v in live.values()]
+    host = torch.cat(cols, dim=1).cpu().numpy()
+    ends = np.cumsum([c.shape[1] for c in cols])
+    out = {}
+    for (name, v), part in zip(live.items(), np.split(host, ends[:-1], 1)):
+        out[name] = part if v.dim() == 2 else part[:, 0]
+    out["emit"] = out["emit"].astype(bool)
+    return CallResult(**out)
+
+
 def submit_batches(pu_t, pu_n, refcache, dtabs, device, drop_t, drop_n,
                    packed16, ref16_fn, cap_mapq,
                    max_batch: int = MAX_BATCH,
@@ -454,16 +527,19 @@ def submit_batches(pu_t, pu_n, refcache, dtabs, device, drop_t, drop_n,
 
 
 def collect_pending(pending, pu_t, pu_n, refcache, dtabs, device,
-                    fmt: str,
-                    precision: str = "fast") -> list[tuple[int, str]]:
-    """Fetch the compacted results and build the output lines, sorted by
-    column key (runner.py:624-698).  The counts come home in one copy,
+                    fmt: str | None = None,
+                    precision: str = "fast") -> list[tuple[int, object]]:
+    """Fetch the compacted results and build the output lines (the
+    records when ``fmt`` is None), sorted by column key
+    (runner.py:624-698).  The counts come home in one copy,
     then each batch's first ``count`` rows (torch slices them exactly,
     so the JAX package's power-of-two fetch buckets, ``_emit_bucket``
     :727-734, are not needed).  A batch that emitted more rows than its
     compact result holds is scored again in full and emitted from the
     CallResult."""
-    records: list[tuple[int, str]] = []
+    import torch
+
+    records: list[tuple[int, object]] = []
     if not pending:
         return records
     with STATS.timer("device"):
@@ -491,16 +567,23 @@ def collect_pending(pending, pu_t, pu_n, refcache, dtabs, device,
 
 def emit_records(keys: np.ndarray, res: CallResult, ref16: np.ndarray,
                  pu_t, pu_n, refcache: RefCache,
-                 fmt: str) -> list[tuple[int, str]]:
-    """(column key, output line) pairs of the emitted columns of a full
-    CallResult (runner.py:822-838), through emit_records_compact."""
-    idx = np.nonzero(res.emit.cpu().numpy())[0]
+                 fmt: str | None = None) -> list[tuple[int, object]]:
+    """(column key, line or record) pairs of the emitted columns of a
+    full CallResult, tensors or host arrays (runner.py:822-838)."""
+    def host(v):
+        return np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+
+    idx = np.nonzero(host(res.emit))[0]
     if len(idx) == 0:
         return []
-    fields = [getattr(res, f).cpu().numpy()[idx] for f in COMPACT_FIELDS]
-    rows = np.stack([idx, *fields], axis=1).astype(np.int64)
-    return emit_records_compact(keys, rows, ref16, pu_t, pu_n, refcache,
-                                fmt)
+    f = {name: host(getattr(res, name))[idx].astype(np.int64)
+         for name in COMPACT_FIELDS}
+    rows_t = rows_n = None
+    if res.tumor_dq is not None:
+        rows_t = host(res.tumor_dq)[idx].astype(np.int64)
+        rows_n = host(res.normal_dq)[idx].astype(np.int64)
+    return _build_records(keys, idx, f, ref16, pu_t, pu_n, refcache, fmt,
+                          rows_t, rows_n)
 
 
 def _ref_chars_for(keys: np.ndarray, refcache: RefCache) -> np.ndarray:
@@ -522,44 +605,104 @@ def _ref_chars_for(keys: np.ndarray, refcache: RefCache) -> np.ndarray:
 
 def emit_records_compact(keys: np.ndarray, rows: np.ndarray,
                          ref16: np.ndarray, pu_t, pu_n, refcache: RefCache,
-                         fmt: str) -> list[tuple[int, str]]:
-    """(column key, output line) pairs from an emitted-row matrix
-    [count, 1 + NF (+ 36)] (runner.py:841-932): leading column the index
+                         fmt: str | None = None) -> list[tuple[int, object]]:
+    """(column key, line or record) pairs from an emitted-row matrix
+    [count, 1 + NF (+ 36)] (runner.py:841-867): leading column the index
     into ``keys``/``ref16``, then the COMPACT_FIELDS, then (when present)
-    the tumor and normal dqstats the device computed; without them the
-    host walks the pileups."""
+    the tumor and normal dqstats (computed on the device for slab
+    columns, appended by the host for a slab's deep and tail columns);
+    without them the builder walks the pileups."""
     if len(rows) == 0:
         return []
     idx = rows[:, 0].astype(np.int64)
     nf = len(COMPACT_FIELDS)
+    f = {name: rows[:, 1 + j] for j, name in enumerate(COMPACT_FIELDS)}
+    rows_t = rows_n = None
+    if rows.shape[1] == 1 + nf + 36:
+        rows_t = rows[:, 1 + nf:1 + nf + 18]
+        rows_n = rows[:, 1 + nf + 18:1 + nf + 36]
+    return _build_records(keys, idx, f, ref16, pu_t, pu_n, refcache, fmt,
+                          rows_t, rows_n)
+
+
+def _build_records(keys: np.ndarray, idx: np.ndarray, f: dict,
+                   ref16: np.ndarray, pu_t, pu_n, refcache: RefCache,
+                   fmt: str | None = None, rows_t: np.ndarray | None = None,
+                   rows_n: np.ndarray | None = None
+                   ) -> list[tuple[int, object]]:
+    """The one builder behind every route (runner.py:870-992): ``f``
+    holds the COMPACT_FIELDS of the emitted columns ``idx`` of
+    ``keys``/``ref16``, ``rows_t``/``rows_n`` their [count, 18] dqstats
+    rows where the scorer supplied them.  With ``fmt`` the bulk text
+    path: the native ``emit_lines`` in one pass, else the Python line
+    builders of ``output.fast_emit``.  With ``fmt`` None, ``DqStats`` /
+    ``SampleData`` / ``SniperRecord`` objects, which the formatters of
+    ``output.formatters`` render to the same bytes."""
     keys = keys[idx]
     tids = (keys >> 40).astype(np.int64)
     poss = (keys & ((1 << 40) - 1)).astype(np.int64)
     chars = _ref_chars_for(keys, refcache)
     rb4 = ref16[idx].astype(np.int64)
-    f = {name: rows[:, 1 + j] for j, name in enumerate(COMPACT_FIELDS)}
-    if rows.shape[1] == 1 + nf + 36:
-        rows_t = rows[:, 1 + nf:1 + nf + 18]
-        rows_n = rows[:, 1 + nf + 18:1 + nf + 36]
-    else:
-        wanted = rb4 | f["tumor_eff_gt"] | f["normal_eff_gt"]
-        with STATS.timer("emit.dqstats"):
-            rows_t = get_dqstats_rows(pu_t, np.searchsorted(pu_t.ukeys, keys),
-                                      rb4, wanted)
-            rows_n = get_dqstats_rows(pu_n, np.searchsorted(pu_n.ukeys, keys),
-                                      rb4, wanted)
     names = refcache.header.ref_names
-    fields = np.stack(
-        [np.asarray(f[k], np.int64) for k in COMPACT_FIELDS[:12]], axis=1)
-    lines = native_api.emit_lines(fmt, names, tids, poss, chars, rb4, fields,
-                                  rows_t, rows_n)
-    if lines is None:  # non-ASCII reference names: the Python builders
-        from .output.fast_emit import LINE_BUILDERS
+    have_dq = rows_t is not None and rows_n is not None
+    if not have_dq:
+        wanted = rb4 | f["tumor_eff_gt"] | f["normal_eff_gt"]
+        ci_t = np.searchsorted(pu_t.ukeys, keys)
+        ci_n = np.searchsorted(pu_n.ukeys, keys)
+    if fmt is not None:
+        if not have_dq:
+            with STATS.timer("emit.dqstats"):
+                rows_t = get_dqstats_rows(pu_t, ci_t, rb4, wanted)
+                rows_n = get_dqstats_rows(pu_n, ci_n, rb4, wanted)
+        fields = np.stack(
+            [np.asarray(f[k], np.int64) for k in COMPACT_FIELDS[:12]],
+            axis=1)
+        lines = native_api.emit_lines(fmt, names, tids, poss, chars, rb4,
+                                      fields, rows_t, rows_n)
+        if lines is None:  # non-ASCII reference names: the Python builders
+            from .output.fast_emit import LINE_BUILDERS
 
-        fl = {k: np.asarray(v).tolist() for k, v in f.items()}
-        lines = LINE_BUILDERS[fmt](
-            [names[t] for t in tids.tolist()], poss.tolist(),
-            chars.tolist(), rb4.tolist(), fl, rows_t.tolist(),
-            rows_n.tolist(),
+            fl = {k: np.asarray(v).tolist() for k, v in f.items()}
+            lines = LINE_BUILDERS[fmt](
+                [names[t] for t in tids.tolist()], poss.tolist(),
+                chars.tolist(), rb4.tolist(), fl, rows_t.tolist(),
+                rows_n.tolist(),
+            )
+        return list(zip(keys.tolist(), lines))
+    if have_dq:
+        dq_t = rows_to_dqstats(rows_t)
+        dq_n = rows_to_dqstats(rows_n)
+    else:
+        with STATS.timer("emit.dqstats"):
+            dq_t = get_dqstats_batch(pu_t, ci_t, rb4, wanted)
+            dq_n = get_dqstats_batch(pu_n, ci_n, rb4, wanted)
+    # one .tolist() a field, not an int() a value
+    fl = {k: np.asarray(v).tolist() for k, v in f.items()}
+    names_l = [names[t] for t in tids.tolist()]
+    poss_l, chars_l, rb4_l = poss.tolist(), chars.tolist(), rb4.tolist()
+    out = []
+    for k, key in enumerate(keys.tolist()):
+        tumor = SampleData(
+            genotype=fl["tumor_gt"][k],
+            joint_genotype=fl["joint_tumor_gt"][k],
+            joint_consensus_quality=fl["joint_cnsq"][k],
+            consensus_quality=fl["tumor_cnsq"][k],
+            variant_allele_quality=fl["tumor_vaq"][k],
+            somatic_score=fl["somatic_score"][k],
+            variant_status=fl["tumor_status"][k],
+            dqstats=dq_t[k],
         )
-    return list(zip(keys.tolist(), lines))
+        normal = SampleData(
+            genotype=fl["normal_gt"][k],
+            joint_genotype=fl["joint_normal_gt"][k],
+            joint_consensus_quality=fl["joint_cnsq"][k],
+            consensus_quality=fl["normal_cnsq"][k],
+            variant_allele_quality=fl["normal_vaq"][k],
+            somatic_score=-1,
+            variant_status=fl["normal_status"][k],
+            dqstats=dq_n[k],
+        )
+        out.append((key, SniperRecord(
+            seq_name=names_l[k], pos=poss_l[k], ref_base=chars_l[k],
+            ref_base4=rb4_l[k], tumor=tumor, normal=normal)))
+    return out

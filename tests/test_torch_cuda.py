@@ -404,3 +404,103 @@ def test_split_over_two_streams_equals_unsplit(dev, encoding, B, D):
                 assert a.device == dev and torch.equal(a, b), name
     assert sum(gk.LAUNCHES.values()) - before == 8
     assert int(want.emit.sum()) > 0
+
+
+@pytest.mark.parametrize("B,D", [(8192, 48), (2048, 64)])
+def test_bench_kernel_on_card(dev, B, D):
+    """``utils.mfu.bench_kernel`` with no device named runs on the card:
+    every step launches glfgen32 twice and no stand-alone kernel, and
+    the launch floor it measures gives a launch bound."""
+    from somatic_sniper_tpu_torch.utils import mfu
+
+    gk.reset_launches()
+    r = mfu.bench_kernel(B=B, D=D, iters=8)
+    assert r.steps_run >= 2 + 2 * (2 + 8)
+    assert gk.LAUNCHES["glfgen32"] == 2 * r.steps_run
+    assert sum(gk.LAUNCHES.values()) == 2 * r.steps_run
+    assert r.kernel_launches == {"glfgen32": 2}
+    assert r.cols_per_sec > 0 and 0 < r.est_mfu < 1
+    assert 0 < r.launch_floor_s < 1e-3
+    assert r.bound_launch_s == r.launches_per_step * r.launch_floor_s
+    assert r.measured_slab_s > max(r.bound_hbm_s, r.bound_compute_s)
+    assert r.verdict.split("-")[0] in ("launch", "byte", "f32")
+
+
+def test_bench_step_card_equals_plain(dev):
+    """One step of the benchmark's data through the kernel against the
+    same step through the plain versions on the card, every field."""
+    from somatic_sniper_tpu_torch.models import glfgen as mg
+    from somatic_sniper_tpu_torch.utils import mfu
+
+    params = T.ModelParams()
+    dtabs = device_tables(T.build_tables(params), dev)
+    stacked_h, meta_h = mfu.bench_inputs(4096, 48)
+    cbs = ts.packed_column_batches(
+        torch.from_numpy(stacked_h.view(np.int32)).to(dev),
+        torch.from_numpy(meta_h).to(dev))
+    got = ts.call_batch(*cbs, dtabs, params)
+    kernel, mg.glfgen32 = mg.glfgen32, gk.glfgen32_plain
+    try:
+        want = ts.call_batch(*cbs, dtabs, params)
+    finally:
+        mg.glfgen32 = kernel
+    # the class sums are added in another order: the qualities that
+    # pass through them may differ by one step, nothing else may
+    pm1 = ("tumor_cnsq", "normal_cnsq", "tumor_vaq", "normal_vaq",
+           "somatic_score", "joint_cnsq")
+    for name, a, b in zip(got._fields, got, want):
+        d = (a.long() - b.long()).abs()
+        assert int(d.max()) <= (1 if name in pm1 else 0), name
+        assert float((d == 0).float().mean()) >= 0.99, name
+
+
+def test_entry_on_card_matches_cpu(dev):
+    from somatic_sniper_tpu_torch.parallel.dryrun import entry
+
+    fn, args = entry()
+    assert args[0].slots.device.type == "cuda"
+    gk.reset_launches()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["glfgen"] == 2 and sum(gk.LAUNCHES.values()) == 2
+    fn_cpu, args_cpu = entry("cpu")
+    want = fn_cpu(*args_cpu)
+    for name, a, b in zip(got._fields, got, want):
+        if b is None:
+            assert a is None, name
+        else:
+            assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.parametrize("prefilter", [True, False])
+def test_windowed_records_on_card(dev, prefilter):
+    """``fmt=None`` and ``prefilter`` through the windowed driver on the
+    card: the records format to the bytes of the ``fmt=`` run; with the
+    prefilter off every shared column is scored, most on the card."""
+    import io
+
+    from somatic_sniper_tpu_torch.output.formatters import get_formatter
+    from somatic_sniper_tpu_torch.output.records import SniperRecord
+    from somatic_sniper_tpu_torch.parallel.sharded import call_pair_sharded
+    from somatic_sniper_tpu_torch.utils.stats import STATS
+
+    d = DATA / "e2e" / "sim1"
+    args = (str(d / "tumor.bam"), str(d / "normal.bam"), str(d / "ref.fa"))
+    kw = dict(precision="fast", device=dev, window_size=700,
+              prefilter=prefilter)
+    lines = list(call_pair_sharded(*args, "vcf", **kw))
+    STATS.reset()
+    gk.reset_launches()
+    recs = list(call_pair_sharded(*args, None, **kw))
+    stats = STATS.snapshot()
+    assert recs and all(isinstance(r, SniperRecord) for r in recs)
+    fh = io.StringIO()
+    for r in recs:
+        get_formatter("vcf")[1](fh, r)
+    assert fh.getvalue().splitlines(keepends=True) == lines
+    assert gk.LAUNCHES["glfgen32"] == 2 * stats["slabs_dispatched"] > 0
+    if not prefilter:
+        scored = sum(stats.get(k, 0) for k in (
+            "device_columns", "host_deep_columns", "host_tail_columns"))
+        assert scored == stats["columns_scored"] > 20 * len(recs)
+        assert stats["device_columns"] > 0.9 * scored

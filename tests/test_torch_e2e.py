@@ -129,6 +129,101 @@ def test_device_cuda_without_cuda_exits_1(data_dir, tmp_path, monkeypatch,
     assert not out.exists()
 
 
+def _sim1_windowed(data_dir):
+    d = data_dir / "e2e" / "sim1"
+    return (["--shard-index", "0", "--window-size", "700", "-f",
+             str(d / "ref.fa"), str(d / "tumor.bam"), str(d / "normal.bam")],
+            d / "expected.vcf")
+
+
+@pytest.mark.parametrize("driver", ["whole", "windowed", "jobs"])
+def test_exact_default_device_needs_no_card(data_dir, tmp_path, monkeypatch,
+                                            driver):
+    """The default run (``--precision exact``, ``--device cuda``) is
+    scored by the native host layer and resolves no device: on a machine
+    without a card it exits 0 with the golden bytes."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    if driver == "whole":
+        inputs, want = _golden_args(data_dir), data_dir / "expected.vcf"
+    else:
+        inputs, want = _sim1_windowed(data_dir)
+        if driver == "jobs":
+            inputs = ["--jobs", "2", *inputs[2:]]
+    out = _run(tmp_path, ["-F", "vcf", *inputs])
+    assert filtered_lines(out) == filtered_lines(want)
+
+
+@pytest.mark.parametrize("driver", ["whole", "windowed"])
+def test_fast_default_device_without_a_card_exits_1(data_dir, tmp_path,
+                                                    monkeypatch, capsys,
+                                                    driver):
+    """Fast precision needs the device for certain: the run stops before
+    the output is opened, on either driver."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inputs = (_golden_args(data_dir) if driver == "whole"
+              else _sim1_windowed(data_dir)[0])
+    out = tmp_path / "never.vcf"
+    assert main(["--precision", "fast", "-F", "vcf", *inputs, str(out)]) == 1
+    err = capsys.readouterr().err
+    assert "no CUDA device is available" in err and "--device cpu" in err
+    assert not out.exists()
+
+
+def test_exact_without_native_needs_the_device(data_dir, tmp_path,
+                                               monkeypatch, capsys):
+    """Exact precision without the native library scores batches on the
+    device: with the default device and no card the run exits 1 where
+    it first needs it (after the decode), and nothing runs on the CPU."""
+    from somatic_sniper_tpu_torch import runner
+    from somatic_sniper_tpu_torch.io import native_api
+    from somatic_sniper_tpu_torch.utils.stats import STATS
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(native_api, "available", lambda: False)
+    monkeypatch.setattr(
+        runner, "submit_batches",
+        lambda *a, **k: pytest.fail("a batch was scored without a card"))
+    STATS.reset()
+    out = tmp_path / "x.vcf"
+    assert main(["-F", "vcf", *_golden_args(data_dir), str(out)]) == 1
+    assert "no CUDA device is available" in capsys.readouterr().err
+    assert STATS.snapshot().get("decode", 0) > 0
+    assert [ln for ln in out.read_text().splitlines()
+            if not ln.startswith("#")] == []
+
+
+def test_device_is_resolved_where_first_needed(data_dir, monkeypatch):
+    """The library API: a device's name is resolved by the path that
+    needs it; exact windows the native layer scores never ask."""
+    from somatic_sniper_tpu_torch import device, runner
+    from somatic_sniper_tpu_torch.parallel import sharded
+
+    asked = []
+    real = device.resolve_device
+
+    def spy(name):
+        asked.append(name)
+        return real(name)
+
+    monkeypatch.setattr(runner, "resolve_device", spy)
+    monkeypatch.setattr(sharded, "resolve_device", spy)
+    d = data_dir / "e2e" / "sim1"
+    args = (str(d / "tumor.bam"), str(d / "normal.bam"), str(d / "ref.fa"),
+            "vcf")
+    exact = list(runner.call_pair(*args, device="cuda"))
+    exact_w = list(sharded.call_pair_sharded(*args, device="cuda",
+                                             window_size=700))
+    assert asked == [] and exact == exact_w and len(exact) > 10
+    fast = list(runner.call_pair(*args, precision="fast", device="cpu"))
+    fast_w = list(sharded.call_pair_sharded(*args, precision="fast",
+                                            device="cpu", window_size=700))
+    assert asked == ["cpu", "cpu"] and fast == fast_w
+    with pytest.raises(device.DeviceUnavailable):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        list(runner.call_pair(*args, precision="fast", device="cuda"))
+
+
 @pytest.mark.parametrize("args,what", [
     (["--jobs", "2"], "--jobs"),
     (["--merge", "collective"], "--merge collective"),

@@ -87,6 +87,22 @@ def test_build_tables_byte_equal(kwargs):
                 po.build_tables(po.ModelParams(**kwargs)), "tables")
 
 
+def test_pack_slots_np_equal():
+    """``models.glfgen.pack_slots_np``, copied (numpy only)."""
+    ja, po = both("models.glfgen")
+    rng = np.random.default_rng(3)
+    shape = (17, 9)
+    args = (rng.choice([0, 1, 2, 4, 8, 15], size=shape),
+            rng.integers(0, 94, shape), rng.integers(0, 256, shape),
+            rng.integers(0, 2, shape), rng.random(shape) < 0.1)
+    assert_same(ja.pack_slots_np(*args), po.pack_slots_np(*args), "slots")
+    assert po.pack_slots_np(1, 2, 3, 1, True) == 3 | 2 << 8 | 1 << 16 \
+        | 1 << 20 | 1 << 21
+    for n in ("SLOT_BASEQ_SHIFT", "SLOT_BASE16_SHIFT", "SLOT_STRAND_SHIFT",
+              "SLOT_ISDEL_SHIFT"):
+        assert getattr(ja, n) == getattr(po, n)
+
+
 def test_allele_util_equal():
     ja, po = both("models.allele_util")
     a = np.arange(16)[:, None].repeat(16, 1)

@@ -76,13 +76,40 @@ def test_jobs_clamp_and_worker_failure(capfd, data_dir, tmp_path):
     assert not out.exists()
 
 
-def test_jobs_without_a_card_exits_1(capsys, data_dir, tmp_path, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+def test_jobs_without_a_card_exits_1(capfd, data_dir, tmp_path, monkeypatch):
+    """The parent resolves no device (it does not even import torch): it
+    builds, spawns, and learns of the missing card from its workers, each
+    of which exits 1 with the device's message."""
+    from somatic_sniper_tpu_torch.ops import build
+
+    monkeypatch.setattr(build, "build", lambda: None)  # as if built
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
     _, args = _sim1(data_dir)
     out = tmp_path / "x.out"
     assert M.main(["--jobs", "2", "--precision", "fast", *args,
                    str(out)]) == 1
-    assert "no CUDA device" in capsys.readouterr().err
+    err = capfd.readouterr().err
+    assert err.count("no CUDA device") == 2
+    assert "worker failed (exit 1)" in err
+    assert not out.exists()
+
+
+def test_jobs_parent_without_nvcc_exits_1(capsys, data_dir, tmp_path,
+                                          monkeypatch):
+    """--device cuda in fast precision makes the parent build the
+    kernels before it spawns; where there is no compiler it says so and
+    exits 1."""
+    from somatic_sniper_tpu_torch.ops import build
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "DEFAULT_CUDA_HOME", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    _, args = _sim1(data_dir)
+    out = tmp_path / "x.out"
+    assert M.main(["--jobs", "2", "--precision", "fast", *args,
+                   str(out)]) == 1
+    assert "nvcc not found" in capsys.readouterr().err
     assert not out.exists()
 
 

@@ -6,7 +6,10 @@ package (``somatic_sniper_tpu``), statically or at run time.
 both names are blocked imports every module of the port and runs its CLI
 on the CPU: whole-file on the golden pair in exact precision (bytes
 equal to the golden VCF) and in fast precision (within the fast
-contract), and through the windowed driver on sim1.
+contract), and through the windowed driver on sim1.  (3) With torch
+blocked as well, the CLI module imports, prints its version and its
+usage, runs the ``--jobs`` parent, and completes the all-host exact run
+on both drivers: a card, and torch, only where a path needs one.
 """
 
 import ast
@@ -144,3 +147,74 @@ def test_profile_env_writes_a_torch_trace(data_dir, tmp_path):
     assert (trace_dir / "trace.json").stat().st_size > 0
     diff_records(filtered_lines(tmp_path / "p.vcf"),
                  filtered_lines(data_dir / "expected.vcf"), "vcf")
+
+
+NO_TORCH = "sys.modules['torch'] = None\n"
+CLI_NO_TORCH = (
+    NO_TORCH + "from somatic_sniper_tpu_torch.cli.main import main\n"
+    "rc = main(sys.argv[1:])\n"
+    "assert not [m for m, v in sys.modules.items()\n"
+    "            if m.split('.')[0] == 'torch' and v is not None]\n"
+    "sys.exit(rc)\n")
+
+
+def test_cli_module_imports_without_torch():
+    r = _child(NO_TORCH + "import somatic_sniper_tpu_torch.cli.main as M\n"
+               "import somatic_sniper_tpu_torch.runner\n"
+               "import somatic_sniper_tpu_torch.parallel.sharded\n"
+               "import somatic_sniper_tpu_torch.models.tables\n"
+               "import somatic_sniper_tpu_torch.ops.build\n"
+               "import somatic_sniper_tpu_torch.device\n"
+               "print(M.PROG)\n")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "bam-somaticsniper-torch"
+
+
+@pytest.mark.parametrize("argv,rc,where,what", [
+    (["-v"], 0, "stdout", "Somatic Sniper version"),
+    ([], 1, "stderr", "REQUIRED reference sequence"),
+    (["a.bam", "b.bam", "out"], 1, "stderr", "You MUST specify a reference"),
+], ids=["version", "usage", "no-reference"])
+def test_cli_answers_without_torch(argv, rc, where, what):
+    r = _child(CLI_NO_TORCH, *argv)
+    assert r.returncode == rc, r.stderr
+    assert what in getattr(r, where)
+
+
+@pytest.mark.parametrize("driver", ["whole", "windowed", "jobs"])
+def test_exact_cli_runs_without_torch(data_dir, tmp_path, driver):
+    """The all-host exact run with the default ``--device``: no card, no
+    torch, the golden bytes.  ``--jobs 2`` adds the parent, which with
+    ``--device cpu`` builds nothing but the native library."""
+    out = tmp_path / "no_torch.vcf"
+    d = data_dir / "e2e" / "sim1"
+    sim1 = ["-f", str(d / "ref.fa"), str(d / "tumor.bam"),
+            str(d / "normal.bam")]
+    if driver == "whole":
+        inputs = ["-f", str(data_dir / "small.fa"),
+                  str(data_dir / "t-small.bam"), str(data_dir / "n-small.bam")]
+        want = data_dir / "expected.vcf"
+    elif driver == "windowed":
+        inputs = ["--shard-index", "0", "--window-size", "700", *sim1]
+        want = d / "expected.vcf"
+    else:
+        inputs = ["--jobs", "2", "--device", "cpu", "--stats", *sim1]
+        want = d / "expected.vcf"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = _child(CLI_NO_TORCH, "-F", "vcf", *inputs, str(out), env=env)
+    assert r.returncode == 0, r.stderr
+    assert filtered_lines(out) == filtered_lines(want)
+    if driver == "jobs":
+        # the parent's own summary, and no torch in it
+        assert "jobs_workers" in r.stderr and "jobs.build" in r.stderr
+
+
+def test_fast_cli_without_torch_fails_at_the_device(data_dir, tmp_path):
+    """Fast precision is where torch is first needed: with it blocked
+    the run dies there, not at import."""
+    r = _child(CLI_NO_TORCH, "--precision", "fast", "-F", "vcf", "-f",
+               str(data_dir / "small.fa"), str(data_dir / "t-small.bam"),
+               str(data_dir / "n-small.bam"), str(tmp_path / "x.vcf"))
+    assert r.returncode != 0
+    assert "resolve_device" in r.stderr
+    assert "import of torch halted" in r.stderr
