@@ -28,7 +28,9 @@ closing ``{"ok": true, ...}`` line is never printed):
    10 Mb tumor/normal pair at 30x (windowed driver), fast precision on
    the card against exact precision (native host scoring) under the fast
    contract, with the launch counters proving the run went through
-   ``glfgen32`` twice a slab and through no stand-alone kernel;
+   ``glfgen32`` twice a slab and through no stand-alone kernel, every
+   slab a replay of the step's captured CUDA graph
+   (``models/step_graph.py``);
 5. fast precision on the card against the golden pair's expected VCF;
 6. the batch path with full-u32 batches (the no-reference route, with
    the reference's ref16 so sites emit) on the 10 Mb pair, whole-file,
@@ -64,8 +66,10 @@ closing ``{"ok": true, ...}`` line is never printed):
 13. ``utils.mfu.bench_kernel`` on the card at (8192, 48), the production
     slab, and at (32768, 64): every step launched ``glfgen32`` twice and
     no stand-alone kernel, one step's rows equal those of the same step
-    through the plain versions on the card; step time, rate, both FLOP
-    counts, the three bounds and the verdict printed;
+    through the plain versions on the card; the graphed step's time (as
+    the slab path replays it), the eager step's beside it, the host's
+    queue time of each and the whole production call of a slab, the
+    rate, both FLOP counts, the three bounds and the verdict printed;
 14. ``parallel.dryrun.entry()`` on the card: ``fn(*args)`` launches
     ``glfgen`` twice and every field equals ``entry("cpu")``'s (integer
     fields; a histogram of differences is printed if any);
@@ -78,7 +82,12 @@ closing ``{"ok": true, ...}`` line is never printed):
 16. a card only where a path needs one: with ``CUDA_VISIBLE_DEVICES``
     empty and the default ``--device``, the exact CLI on the golden pair
     exits 0 with the golden bytes and never imports torch, and the fast
-    CLI exits 1 with the device's message.
+    CLI exits 1 with the device's message;
+17. the captured step against the eager step: every slab depth the
+    dispatcher can pick (``ALLOWED_D``) at B = 8192, with and without
+    joint priors, two input sets back to back; count and rows equal
+    byte for byte, the same launch counts; each capture's time and the
+    graph pool's device memory printed.
 
 Its first statements make ``import jax`` and ``import somatic_sniper_tpu``
 fail, so a pass also shows that the port needs neither; it imports only
@@ -891,10 +900,11 @@ def check_scored_on_card(summaries: list[dict], n: int, what: str) -> dict:
     for i, b in enumerate(summaries):
         if (b.get("launches_glfgen32", 0) <= 0
                 or b["launches_glfgen32"] != 2 * b.get("slabs_dispatched", 0)
+                or b.get("slabs_graphed", 0) != b["slabs_dispatched"]
                 or b.get("device_columns", 0) <= 0):
             raise AssertionError(
                 f"{what}: process {i} did not score its slabs through "
-                f"glfgen32 on the card: {b}")
+                f"glfgen32 in the captured step on the card: {b}")
     return {"glfgen32": sum(b["launches_glfgen32"] for b in summaries)}
 
 
@@ -1157,21 +1167,110 @@ def bench_kernel_on_card(dev, torch) -> None:
             raise AssertionError(f"one step at {(B, D)}: the rows through "
                                  "the kernel differ from the plain versions'")
         hist = step_diff(got[1], want[1], torch)
-        print(f"  B={B} D={D}: step {r.measured_slab_s * 1e3:.4f} ms, "
-              f"{r.cols_per_sec:.0f} pair-columns/s; FLOPs a pair-column "
-              f"{r.port_flops_per_col:.0f} by the port's count "
+        print(f"  B={B} D={D}: graphed step {r.measured_slab_s * 1e3:.4f} "
+              f"ms (the host queues one in {r.host_queue_s * 1e3:.4f} ms), "
+              f"eager step {r.eager_slab_s * 1e3:.4f} ms (queued in "
+              f"{r.eager_host_queue_s * 1e3:.4f} ms), a slab's whole call "
+              f"(upload, replay, fetch, one wait) "
+              f"{r.graph_run_s * 1e3:.4f} ms; "
+              f"{r.cols_per_sec:.0f} pair-columns/s graphed; FLOPs a "
+              f"pair-column {r.port_flops_per_col:.0f} by the port's count "
               f"({r.flops_per_col:.0f} by the JAX package's), "
               f"{r.tflops:.5f} TFLOP/s, est_mfu {r.est_mfu:.6f} of the f32 "
               f"peak; bounds: f32 {r.bound_compute_s * 1e3:.5f} ms, bytes "
               f"{r.bound_hbm_s * 1e3:.5f} ms, launches "
               f"{r.bound_launch_s * 1e3:.4f} ms ({r.launches_per_step} "
               f"device operations a step, glfgen32 twice among them, at "
-              f"{r.launch_floor_s * 1e6:.2f} us an empty launch), the host "
-              f"queues a step in {r.host_queue_s * 1e3:.4f} ms; {count} "
+              f"{r.launch_floor_s * 1e6:.2f} us an empty launch replayed "
+              f"from a graph; queued on a stream, as the eager step's are, "
+              f"{r.stream_launch_floor_s * 1e6:.2f} us, a launch bound of "
+              f"{r.launches_per_step * r.stream_launch_floor_s * 1e3:.4f} "
+              f"ms); {count} "
               f"emitted rows equal to the plain versions', the "
               f"{len(got[1])} fields of {B} columns inside the fast "
               f"contract, hist {json.dumps(hist, sort_keys=True)}; verdict: "
               f"{r.verdict}", flush=True)
+
+
+def check_graphed(stats: dict, what: str) -> None:
+    """Every slab of a run on the card went through the captured step."""
+    slabs = int(stats.get("slabs_dispatched", 0))
+    if int(stats.get("slabs_graphed", 0)) != slabs:
+        raise AssertionError(f"{what}: {stats.get('slabs_graphed', 0)} of "
+                             f"{slabs} slabs replayed the captured step")
+
+
+def random_packed_slab(B: int, D: int, seed: int):
+    """A two-sample slab in the layout of ``io.native_api
+    .slab_fill_pair``: (stacked uint32 [2, B, D], meta int32 [3, B]),
+    the raw depth one more than the kept lanes where any are kept."""
+    import numpy as np
+
+    s_t, nk_t, ref16 = random_slab_lanes(B, D, seed)
+    s_n, nk_n, _ = random_slab_lanes(B, D, seed + 1000)
+    d_t, d_n = nk_t + (nk_t > 0), nk_n + (nk_n > 0)
+    meta = np.zeros((3, B), np.uint32)
+    meta[0] = ref16.astype(np.uint32) << 24
+    meta[2] = (d_t.astype(np.uint32) | d_n.astype(np.uint32) << 8
+               | nk_t.astype(np.uint32) << 16 | nk_n.astype(np.uint32) << 24)
+    return (np.stack([s_t, s_n]).view(np.uint32), meta.view(np.int32))
+
+
+def graphed_against_eager(dev, torch, B: int = 8192) -> None:
+    """Phase 17: the captured step against the eager step at every slab
+    depth, both priors, two input sets back to back, B columns a slab."""
+    from somatic_sniper_tpu_torch.models.somatic import call_batch_packed
+    from somatic_sniper_tpu_torch.models.step_graph import STEP_GRAPHS
+    from somatic_sniper_tpu_torch.models.tables import (ModelParams,
+                                                        build_tables,
+                                                        device_tables)
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+    from somatic_sniper_tpu_torch.parallel.slab import ALLOWED_D
+
+    for joint in (False, True):
+        params = ModelParams(use_joint_priors=joint, min_somatic_qual=0)
+        dtabs = device_tables(build_tables(params), dev, "fast")
+        for D in ALLOWED_D:
+            known = set(STEP_GRAPHS.captures())
+            emitted = []
+            for seed in (D, D + 1):
+                stacked_h, meta_h = random_packed_slab(B, D, seed)
+                gk.reset_launches()
+                res = call_batch_packed(
+                    torch.from_numpy(stacked_h.view("int32")).to(dev),
+                    torch.from_numpy(meta_h).to(dev), dtabs, params)
+                n_e = int(res.count)
+                rows_e = res.rows[:n_e].cpu().numpy()
+                eager = dict(gk.LAUNCHES)
+                gk.reset_launches()
+                n, rows = STEP_GRAPHS.run(stacked_h, meta_h, dtabs, params,
+                                          dev)
+                if dict(gk.LAUNCHES) != eager or eager["glfgen32"] != 2:
+                    raise AssertionError(
+                        f"launches: eager {eager}, graphed {gk.LAUNCHES}")
+                if (n != n_e or rows.tobytes() != rows_e.tobytes()
+                        or n == 0):
+                    raise AssertionError(
+                        f"the captured step differs from the eager one at "
+                        f"{(B, D)}, joint {joint}, seed {seed}: {n} rows "
+                        f"against {n_e}")
+                emitted.append(n)
+            new = {k: v for k, v in STEP_GRAPHS.captures().items()
+                   if k not in known}
+            if len(new) != 1:
+                raise AssertionError(f"{len(new)} captures for one shape")
+            print(f"  B={B} D={D:3d} joint={joint!s:5s}: captured in "
+                  f"{1e3 * next(iter(new.values())):.1f} ms (two eager "
+                  f"warm-up steps included); two input sets, {emitted} "
+                  "rows, count and rows byte-equal to the eager step, "
+                  "glfgen32 twice each way", flush=True)
+    caps = STEP_GRAPHS.captures()
+    print(f"  {len(caps)} captured steps in this process, the graph pool "
+          f"holds {STEP_GRAPHS.pool_bytes(dev) / 2**20:.1f} MiB of device "
+          f"memory; captures of the other phases: " + ", ".join(
+              f"B={k[1]} D={k[2]} joint={k[3].use_joint_priors} "
+              f"{1e3 * v:.1f} ms" for k, v in caps.items()
+              if k[3].min_somatic_qual != 0), flush=True)
 
 
 def entry_on_card(torch) -> None:
@@ -1258,6 +1357,7 @@ def records_and_prefilter(pair: Path, out_dir: Path, fast_lines: list[str],
         slabs = int(stats.get("slabs_dispatched", 0))
         if launches["glfgen32"] != 2 * slabs or slabs == 0:
             raise AssertionError(f"{what}: {slabs} slabs launched {launches}")
+        check_graphed(stats, what)
     scored = {k: int(stats.get(k, 0)) for k in
               ("device_columns", "host_deep_columns", "host_tail_columns")}
     if sum(scored.values()) != n_cols:
@@ -1391,9 +1491,14 @@ def main() -> int:
               f"{use.get('spill_bytes', 0)} bytes spilled, "
               f"{use['smem_bytes']} bytes of static shared memory",
               flush=True)
-    floor_ms = queued_ms(lambda: gk.empty_launch(*FLOOR_GRID, dev), torch)
-    if floor_ms is None:
-        raise AssertionError("the empty kernel's launches waited")
+    # the empty kernel never waits: a timing whose spin ran out before
+    # the host had queued the launches is the host's hiccup, measured again
+    for _ in range(3):
+        floor_ms = queued_ms(lambda: gk.empty_launch(*FLOOR_GRID, dev), torch)
+        if floor_ms is not None:
+            break
+    else:
+        raise AssertionError("the empty kernel's launches waited three times")
     print(f"  {card}: launch floor {floor_ms:.4f} ms (an empty kernel "
           f"of {FLOOR_GRID[0]} blocks of {FLOOR_GRID[1]} threads, "
           f"{TIMED_RUNS} queued back to back)", flush=True)
@@ -1467,6 +1572,7 @@ def main() -> int:
     if (slabs == 0 or launches["glfgen32"] != 2 * slabs
             or launches["accumulate32"] or launches["assembly10"]):
         raise AssertionError(f"{slabs} slabs launched {launches}")
+    check_graphed(stats, "phase 4")
     phase("5 golden pair, fast on the card")
     gold_out = out_dir / "golden_fast.vcf"
     run_cli(["--precision", "fast", "--device", "cuda", "-F", "vcf",
@@ -1529,6 +1635,9 @@ def main() -> int:
 
     phase("16 the default --device with no card visible")
     cli_without_a_card(out_dir)
+
+    phase("17 the captured step against the eager step")
+    graphed_against_eager(dev, torch)
 
     # each kernel's launches from the phase that ran it, its times at
     # the main shape of its path (phase 8)

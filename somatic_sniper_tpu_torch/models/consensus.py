@@ -12,6 +12,7 @@ consensus-quality loop are kept.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -40,8 +41,13 @@ class SomaticScore(NamedTuple):
     joint_consensus_quality: torch.Tensor  # [B]
 
 
-def _glf_base(device) -> torch.Tensor:
-    return torch.as_tensor(GLF_BASE, dtype=I32, device=device)
+@functools.lru_cache(maxsize=None)
+def _consts(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(GLF_BASE, the het-penalty mask) as int32 tensors on ``device``,
+    made once a device: a warm step then copies nothing from the host,
+    which a CUDA graph's capture forbids (models/step_graph.py)."""
+    return (torch.as_tensor(GLF_BASE, dtype=I32, device=device),
+            torch.tensor(_QR_MASK, dtype=I32, device=device))
 
 
 def glf2cns_batch(lk, n_total, q_r_int: int) -> ConsensusCall:
@@ -50,7 +56,7 @@ def glf2cns_batch(lk, n_total, q_r_int: int) -> ConsensusCall:
     ``lk`` [B, 10] int32, ``n_total`` [B] raw column depth.  The
     reference's strict-< scan over the ten genotypes is three argmins
     (first minimum wins), each masking the previous winner."""
-    qr = torch.tensor(_QR_MASK, dtype=I32, device=lk.device)
+    base, qr = _consts(lk.device)
     t = lk + qr * q_r_int
     big = 1 << 20
     i1 = torch.argmin(t, dim=1, keepdim=True)
@@ -61,7 +67,6 @@ def glf2cns_batch(lk, n_total, q_r_int: int) -> ConsensusCall:
     m3 = t2.scatter_add(1, i2, torch.full_like(m2, big)).amin(dim=1)
     m1, m2 = m1[:, 0], m2[:, 0]
 
-    base = _glf_base(lk.device)
     nz = n_total > 0
     zero = torch.zeros_like(m1)
     return ConsensusCall(
@@ -123,7 +128,7 @@ def somatic_score_batch(lk_tumor, lk_normal, ref16, solo_prior,
             qps = qadd(qps, lkv)
             # stale-i quirk: the guard is effectively j != tumor argmin
             jcq = torch.where(tj != j, qadd(jcq, lkv), jcq)
-        base = _glf_base(dev)
+        base = _consts(dev)[0]
         return SomaticScore(
             q_posterior_sum=qps,
             joint_tumor_gt=base[tj],

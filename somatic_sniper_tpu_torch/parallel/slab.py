@@ -4,8 +4,10 @@ The port's own copy of somatic_sniper_tpu/parallel/slab.py (depth
 choice, cross-window filling, host scoring of deep columns, in-order
 window release), one class, with the device interaction written for
 torch: each full slab is uploaded on a dedicated CUDA stream, scored by
-``models.somatic.call_batch_packed``, and its i32 rows come back after
-one ``stream.synchronize()``.  Not copied: the source's
+one replay of ``models.somatic.call_batch_packed`` captured as a CUDA
+graph (``models.step_graph``; the counterpart of the source's jitted
+step), and its i32 rows come back after one ``stream.synchronize()``.
+Not copied: the source's
 ``_dispatch_and_fetch`` (it imports JAX) and its u8 row decode; the
 port's rows carry the slab index whole.
 
@@ -50,6 +52,7 @@ import torch
 from ..io.native_api import exact_pair_rows, slab_fill_pair
 from ..models.somatic import (COMPACT_FIELDS, MAX_D, call_batch_packed,
                               compact_rows, packed_column_batches)
+from ..models.step_graph import STEP_GRAPHS
 from ..output.dqstats import get_dqstats_rows
 from ..utils.stats import STATS
 
@@ -198,6 +201,7 @@ class TorchSlabDispatcher:
             max_workers=1, thread_name_prefix="slab-collect"
         )
         self._lock = threading.Lock()
+        self._in_flight = threading.Lock()
         self.fill = 0
         self.segs: list[_Seg] = []
         self.stacked_h = None
@@ -471,7 +475,22 @@ class TorchSlabDispatcher:
         """Upload one slab, score it, return ``(count, rows[:count])``
         as numpy (runs on the background device thread; the host
         buffers are owned by the caller and never reused, _flush
-        allocates fresh ones)."""
+        allocates fresh ones).
+
+        On one card the slab goes through the step's captured CUDA graph
+        (models.step_graph), whose fixed buffers the next slab reuses:
+        that holds because one slab is in flight at a time (the
+        collector has one worker), which the ``_in_flight`` lock
+        asserts.  The split over several devices and the CPU score
+        eagerly by design; a failed capture or replay raises."""
+        if not self._in_flight.acquire(blocking=False):
+            raise AssertionError("a second slab in flight")
+        try:
+            return self._score_slab(stacked_h, meta_h)
+        finally:
+            self._in_flight.release()
+
+    def _score_slab(self, stacked_h, meta_h):
         from ..runner import data_mesh, dtabs_for
 
         dtabs = self.dtabs_fn()
@@ -487,8 +506,8 @@ class TorchSlabDispatcher:
                 self._stream.wait_stream(
                     torch.cuda.default_stream(self.device))
             if mesh is not None:
-                # each device is sent its part of the slab; the rows are
-                # gathered and compacted on the first
+                # each device is sent its part of the slab, scored
+                # eagerly; the rows are gathered and compacted on the first
                 from .sharding import sharded_call_batch
 
                 cb_t, cb_n = packed_column_batches(
@@ -499,12 +518,15 @@ class TorchSlabDispatcher:
                                        dtabs_for(self.params, "fast"),
                                        self.params), self.B)
                 STATS.add("slabs_split", 1)
-            else:
-                with STATS.timer("pad+dispatch.upload"):
-                    stacked = torch.from_numpy(
-                        stacked_h.view(np.int32)).to(self.device)
-                    meta = torch.from_numpy(meta_h).to(self.device)
-                res = call_batch_packed(stacked, meta, dtabs, self.params)
+            elif self._stream is not None:
+                # one card: the captured step, and never the eager one
+                STATS.add("slabs_graphed", 1)
+                return STEP_GRAPHS.run(stacked_h, meta_h, dtabs, self.params,
+                                       self.device)
+            else:  # the CPU: the eager step over the plain versions
+                res = call_batch_packed(torch.from_numpy(
+                    stacked_h.view(np.int32)), torch.from_numpy(meta_h),
+                    dtabs, self.params)
             count = res.count.to("cpu")
             rows = res.rows.to("cpu")
             if self._stream is not None:

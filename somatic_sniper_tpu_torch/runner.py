@@ -435,7 +435,9 @@ def submit_call_batch(batch: PairedBatch, ref16: np.ndarray,
     (``_b_bucket``, :737-747) only to bound XLA recompiles; torch needs
     no such padding, and padded rows were empty and changed no output
     (so a part may be of any size, where the source needed the batch to
-    divide by the mesh)."""
+    divide by the mesh).  A batch is scored eagerly, in either precision:
+    its B varies from batch to batch, where the slab path's fixed shape
+    is what lets it replay one captured graph (models/step_graph.py)."""
     import torch
 
     from .models.somatic import (call_batch_stacked, compact_rows,

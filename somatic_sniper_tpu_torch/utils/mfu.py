@@ -5,7 +5,8 @@ production scoring step of one slab, ``models.somatic
 .call_batch_packed`` over a ``[2, B, D]`` stack of raw kept-only u32
 lanes with ``max_emit = B``: on a card two ``glfgen32`` launches (tumor,
 normal) and the torch ops of ``models/consensus.py`` and
-``models/somatic.py`` behind them.
+``models/somatic.py`` behind them, replayed as one captured CUDA graph
+(``models.step_graph``), as the slab path runs it.
 
 * ``cols_per_sec``: ``lo`` and ``hi`` back-to-back steps are timed
   (CUDA events on a card, ``time.perf_counter`` on the CPU), each after
@@ -13,10 +14,14 @@ normal) and the torch ops of ``models/consensus.py`` and
   ``B * (hi - lo) / (t_hi - t_lo)``, so whatever a run costs once
   cancels.  Each step scores ``stacked ^ (previous count & 1)``,
   computed on the device with no host round trip, so successive steps
-  score different lanes.  The source chains its steps in a
+  score different lanes (on a card the flip is made in place on the
+  graph's static input before each replay).  The eager step is timed
+  the same way on the same inputs (``eager_slab_s``), and so is the
+  whole production call of a slab, upload and fetch included
+  (``graph_run_s``).  The source chains its steps in a
   ``lax.fori_loop`` with that carry to keep XLA from hoisting the body
-  out of the loop; torch runs eagerly, op by op, so that guard has no
-  counterpart and no role here.
+  out of the loop; torch hoists nothing, so the carry only varies the
+  inputs.
 * ``flops_per_pair_column(D)`` is the source's count, unchanged.  It
   counts one-hot matrix contractions that the port does not perform
   (its kernels gather from the tables), and is kept only so that the two
@@ -31,14 +36,16 @@ normal) and the torch ops of ``models/consensus.py`` and
 * ``launches_per_step``: the device operations one step queues (torch
   ops that compute, views and bare allocations left out, each at least
   one kernel launch on a card, plus the hand-written kernels' own
-  launches).  Times the launch floor measured in the same call (the
-  device time of an empty kernel, queued back to back behind a spin
-  kernel so that the host's own pace stays out of it) it is the third
-  bound.
+  launches), counted over the eager step; a replay runs the same.
+  Times the launch floor measured in the same call (the device time of
+  an empty kernel replayed from a graph of 200 of them, as a step's
+  kernels are) it is the third bound.  ``stream_launch_floor_s`` is the
+  eager step's floor: the same kernel queued on a stream back to back
+  behind a spin kernel, so that the host's own pace stays out of it.
 * ``host_queue_s``: the time the host takes to queue one step's
-  operations, without waiting for the device.  Where it is about the
-  measured step time the device is waiting for the host, and the verdict
-  says so.
+  operations, without waiting for the device (``eager_host_queue_s``
+  for the eager step).  Where it is about the measured step time the
+  device is waiting for the host, and the verdict says so.
 
 Peaks are the H100 SXM data sheet's: 67 TFLOP/s f32 (no tensor cores:
 the step has no matrix product) and 3.35 TB/s HBM3.  On a card the
@@ -109,10 +116,17 @@ class KernelBench(NamedTuple):
     port_flops_per_col: float
     launches_per_step: int        # device operations a step queues
     kernel_launches: dict         # hand-written kernels launched a step
-    launch_floor_s: float         # an empty launch; 0.0 on the CPU
+    launch_floor_s: float         # an empty launch replayed from a graph,
+                                  # as the step's are; 0.0 on the CPU
     bound_launch_s: float         # launches_per_step * launch_floor_s
     host_queue_s: float           # the host queueing one step, no wait
     steps_run: int                # steps this call ran, warm-up included
+    eager_slab_s: float           # the eager step, on the same inputs
+    eager_host_queue_s: float     # the host queueing one eager step
+    stream_launch_floor_s: float  # an empty launch queued on a stream, as
+                                  # the eager step's are; 0.0 on the CPU
+    graph_run_s: float            # host clock of one STEP_GRAPHS.run: upload,
+                                  # replay, fetch, one wait; 0.0 on the CPU
 
 
 def bench_inputs(B: int, D: int) -> tuple[np.ndarray, np.ndarray]:
@@ -184,6 +198,7 @@ def _verdict(slab_s: float, bounds: dict[str, float],
 # the empty kernel that measures the launch floor: (blocks, threads)
 FLOOR_GRID = (1024, 256)
 FLOOR_LAUNCHES = 200
+FLOOR_REPLAYS = 5
 
 
 def launch_floor_s(dev) -> float:
@@ -217,15 +232,44 @@ def launch_floor_s(dev) -> float:
     return t0.elapsed_time(t1) / 1e3 / FLOOR_LAUNCHES
 
 
+def graph_launch_floor_s(dev) -> float:
+    """Device seconds of one empty launch of FLOOR_GRID replayed from a
+    CUDA graph that holds FLOOR_LAUNCHES of them: the launch floor of a
+    graphed step, whose replay the host queues in one call."""
+    import torch
+
+    from ..ops import glfgen_kernels as K
+
+    K.empty_launch(*FLOOR_GRID, dev)  # builds and loads the library
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(dev):
+        with torch.cuda.graph(graph):
+            for _ in range(FLOOR_LAUNCHES):
+                K.empty_launch(*FLOOR_GRID, dev)
+        graph.replay()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(FLOOR_REPLAYS):
+            graph.replay()
+        t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / 1e3 / (FLOOR_REPLAYS * FLOOR_LAUNCHES)
+
+
 def bench_kernel(B: int = 8192, D: int = 48, iters: int = 16,
                  use_joint: bool = False, device=None) -> KernelBench:
     """Measure the rate of the production scoring step on ``device``:
     the card when None (``resolve_device("cuda")`` raises without one),
-    the CPU only by name."""
+    the CPU only by name.  On a card the step is what the slab path
+    replays (``models.step_graph.STEP_GRAPHS``), and the eager step is
+    timed beside it on the same inputs; on the CPU both are the eager
+    step, which is what the slab path runs there."""
     import torch
 
     from ..device import resolve_device
     from ..models.somatic import call_batch_packed
+    from ..models.step_graph import STEP_GRAPHS
     from ..models.tables import ModelParams, build_tables, device_tables
     from ..ops import glfgen_kernels as K
 
@@ -239,20 +283,34 @@ def bench_kernel(B: int = 8192, D: int = 48, iters: int = 16,
 
     steps_run = 0
 
-    def steps(n: int):
+    def eager(n: int):
         nonlocal steps_run
         steps_run += n
         prev = torch.zeros((), dtype=torch.int32, device=dev)
         for _ in range(n):
             prev = call_batch_packed(stacked ^ (prev & 1), meta, dtabs,
                                      params).count
-        return prev
+
+    graph = None
+    if on_card:
+        graph = STEP_GRAPHS.step(B, D, dtabs, params, dev)
+
+        def graphed(n: int):
+            # the same carry as the eager steps: the next step scores the
+            # lanes flipped by the last count's low bit
+            nonlocal steps_run
+            steps_run += n
+            for _ in range(n):
+                graph.stacked ^= graph.count & 1
+                graph.replay()
+    else:
+        graphed = eager
 
     def wait():
         if on_card:
             torch.cuda.synchronize(dev)
 
-    def timed(n: int) -> float:
+    def timed(steps, n: int) -> float:
         if not on_card:
             t0 = time.perf_counter()
             steps(n)
@@ -265,28 +323,45 @@ def bench_kernel(B: int = 8192, D: int = 48, iters: int = 16,
         t1.synchronize()
         return t0.elapsed_time(t1) / 1e3
 
-    steps(1)  # warm: kernel build, table cuts, allocator
+    lo, hi = max(2, iters // 4), iters
+
+    def step_and_queue_s(steps) -> tuple[float, float]:
+        """(seconds a step, seconds the host takes to queue one)."""
+        t_lo = min(timed(steps, lo) for _ in range(2))
+        t_hi = min(timed(steps, hi) for _ in range(2))
+        wait()
+        t0 = time.perf_counter()
+        steps(hi)
+        queue_s = (time.perf_counter() - t0) / hi
+        wait()
+        return max(t_hi - t_lo, 1e-9) / (hi - lo), queue_s
+
+    eager(1)  # warm: kernel build, table cuts, allocator
+    if graph is not None:
+        graph.upload(stacked_h, meta_h)
+        graph.replay()  # the first count, which the next step reads
+        steps_run += 1
     wait()
     before = dict(K.LAUNCHES)
-    n_ops = count_step_ops(lambda: steps(1))
+    n_ops = count_step_ops(lambda: eager(1))
     wait()
     kernel_launches = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
                        if K.LAUNCHES[k] != before[k]}
     launches = n_ops + sum(kernel_launches.values())
 
-    lo, hi = max(2, iters // 4), iters
-    t_lo = min(timed(lo) for _ in range(2))
-    t_hi = min(timed(hi) for _ in range(2))
-    dt = max(t_hi - t_lo, 1e-9)
-    cols_per_sec = B * (hi - lo) / dt
-    slab_s = dt / (hi - lo)
-
-    wait()
-    t0 = time.perf_counter()
-    steps(hi)
-    host_queue_s = (time.perf_counter() - t0) / hi
-    wait()
-    floor_s = launch_floor_s(dev) if on_card else 0.0
+    slab_s, host_queue_s = step_and_queue_s(graphed)
+    eager_s, eager_queue_s = (step_and_queue_s(eager) if on_card
+                              else (slab_s, host_queue_s))
+    run_s = 0.0
+    if on_card:
+        t0 = time.perf_counter()
+        for _ in range(hi):
+            STEP_GRAPHS.run(stacked_h, meta_h, dtabs, params, dev)
+        steps_run += hi
+        run_s = (time.perf_counter() - t0) / hi
+    cols_per_sec = B / slab_s
+    floor_s = graph_launch_floor_s(dev) if on_card else 0.0
+    stream_floor_s = launch_floor_s(dev) if on_card else 0.0
 
     f_port = port_flops_per_pair_column(D)
     tflops = cols_per_sec * f_port / 1e12
@@ -306,5 +381,7 @@ def bench_kernel(B: int = 8192, D: int = 48, iters: int = 16,
         port_flops_per_col=f_port, launches_per_step=launches,
         kernel_launches=kernel_launches, launch_floor_s=floor_s,
         bound_launch_s=bounds["launch"], host_queue_s=host_queue_s,
-        steps_run=steps_run,
+        steps_run=steps_run, eager_slab_s=eager_s,
+        eager_host_queue_s=eager_queue_s, graph_run_s=run_s,
+        stream_launch_floor_s=stream_floor_s,
     )

@@ -409,8 +409,9 @@ def test_split_over_two_streams_equals_unsplit(dev, encoding, B, D):
 @pytest.mark.parametrize("B,D", [(8192, 48), (2048, 64)])
 def test_bench_kernel_on_card(dev, B, D):
     """``utils.mfu.bench_kernel`` with no device named runs on the card:
-    every step launches glfgen32 twice and no stand-alone kernel, and
-    the launch floor it measures gives a launch bound."""
+    every step, replayed or eager, launches glfgen32 twice and no
+    stand-alone kernel (a capture's warm-up counts none), and the launch
+    floor it measures gives a launch bound."""
     from somatic_sniper_tpu_torch.utils import mfu
 
     gk.reset_launches()
@@ -420,7 +421,9 @@ def test_bench_kernel_on_card(dev, B, D):
     assert sum(gk.LAUNCHES.values()) == 2 * r.steps_run
     assert r.kernel_launches == {"glfgen32": 2}
     assert r.cols_per_sec > 0 and 0 < r.est_mfu < 1
-    assert 0 < r.launch_floor_s < 1e-3
+    assert r.eager_slab_s > 0 and r.eager_host_queue_s > 0
+    assert r.graph_run_s > r.measured_slab_s > 0
+    assert 0 < r.launch_floor_s < 1e-3 and 0 < r.stream_launch_floor_s < 1e-3
     assert r.bound_launch_s == r.launches_per_step * r.launch_floor_s
     assert r.measured_slab_s > max(r.bound_hbm_s, r.bound_compute_s)
     assert r.verdict.split("-")[0] in ("launch", "byte", "f32")
@@ -504,3 +507,103 @@ def test_windowed_records_on_card(dev, prefilter):
             "device_columns", "host_deep_columns", "host_tail_columns"))
         assert scored == stats["columns_scored"] > 20 * len(recs)
         assert stats["device_columns"] > 0.9 * scored
+
+
+def _card_slab(B, D, seed, dev):
+    stacked, meta = random_slab(B, D, seed)
+    return (stacked, meta, torch.from_numpy(stacked.view(np.int32)).to(dev),
+            torch.from_numpy(meta).to(dev))
+
+
+@pytest.mark.parametrize("use_joint", [False, True])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128])
+def test_graphed_step_equals_eager_on_card(dev, D, use_joint):
+    """The captured step at every slab depth the dispatcher can pick
+    (``parallel.slab.ALLOWED_D``), two input sets back to back: count
+    and rows byte-equal to the eager step on the same inputs (the second
+    set gives the second answer: no stale static buffer), and a replay
+    counts the two glfgen32 launches the eager step makes."""
+    from somatic_sniper_tpu_torch.models.step_graph import SlabStepGraph
+    from somatic_sniper_tpu_torch.parallel.slab import ALLOWED_D
+
+    assert D in ALLOWED_D
+    params = T.ModelParams(use_joint_priors=use_joint, min_somatic_qual=0)
+    dtabs = device_tables(T.build_tables(params), dev)
+    graphs = SlabStepGraph()
+    answers = []
+    for seed in (D, D + 1):
+        stacked, meta, s, m = _card_slab(4096, D, seed, dev)
+        before = dict(gk.LAUNCHES)
+        eager = ts.call_batch_packed(s, m, dtabs, params)
+        n_e = int(eager.count)
+        rows_e = eager.rows[:n_e].cpu().numpy()
+        eager_launches = {k: gk.LAUNCHES[k] - before[k] for k in before}
+        before = dict(gk.LAUNCHES)
+        n, rows = graphs.run(stacked, meta, dtabs, params, dev)
+        assert {k: gk.LAUNCHES[k] - before[k] for k in before} == \
+            eager_launches
+        assert eager_launches["glfgen32"] == 2
+        assert n == n_e > 0
+        assert rows.dtype == rows_e.dtype and np.array_equal(rows, rows_e)
+        answers.append(rows)
+    assert len(graphs.captures()) == 1
+    assert not (len(answers[0]) == len(answers[1])
+                and np.array_equal(*answers))
+
+
+def test_slab_path_on_card_replays_the_graph(dev, monkeypatch):
+    """A card dispatcher scores its slab through the captured step and
+    never the eager one."""
+    from somatic_sniper_tpu_torch.models.step_graph import SlabStepGraph
+    from somatic_sniper_tpu_torch.parallel import slab
+
+    def eager(*args):
+        raise AssertionError("the card ran the eager step")
+
+    graphs = SlabStepGraph()
+    monkeypatch.setattr(slab, "STEP_GRAPHS", graphs)
+    monkeypatch.setattr(slab, "call_batch_packed", eager)
+    monkeypatch.setenv("SNIPER_NO_MESH", "1")
+    params = T.ModelParams(min_somatic_qual=0)
+    tabs = T.build_tables(params)
+    dtabs = device_tables(tabs, dev)
+    disp = slab.TorchSlabDispatcher(lambda: dtabs, tabs, params, None, dev)
+    stacked, meta, s, m = _card_slab(2048, 48, 9, dev)
+    want = ts.call_batch_packed(s, m, dtabs, params)
+    n, rows = disp._dispatch_and_fetch(stacked, meta)
+    disp._collector.shutdown()
+    assert n == int(want.count) > 0
+    assert np.array_equal(rows, want.rows[:n].cpu().numpy())
+    assert len(graphs.captures()) == 1
+
+
+def test_failed_capture_raises_on_card(dev, monkeypatch):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises, the slab fails with it, and no eager step runs in
+    its place."""
+    from somatic_sniper_tpu_torch.models import step_graph as sg
+    from somatic_sniper_tpu_torch.parallel import slab
+
+    def reads_back(stacked, meta, dtabs, params):
+        res = ts.call_batch_packed(stacked, meta, dtabs, params)
+        int(res.count)  # a host read: no capture allows it
+        return res
+
+    def eager(*args):
+        raise AssertionError("the card ran the eager step")
+
+    graphs = sg.SlabStepGraph()
+    monkeypatch.setattr(sg, "call_batch_packed", reads_back)
+    monkeypatch.setattr(slab, "STEP_GRAPHS", graphs)
+    monkeypatch.setattr(slab, "call_batch_packed", eager)
+    monkeypatch.setenv("SNIPER_NO_MESH", "1")
+    params = T.ModelParams()
+    tabs = T.build_tables(params)
+    dtabs = device_tables(tabs, dev)
+    disp = slab.TorchSlabDispatcher(lambda: dtabs, tabs, params, None, dev)
+    stacked, meta = random_slab(1024, 16, 2)
+    with pytest.raises(RuntimeError):
+        disp._dispatch_and_fetch(stacked, meta)
+    disp._collector.shutdown()
+    assert graphs.captures() == {}
+    torch.cuda.synchronize()  # the card is still usable

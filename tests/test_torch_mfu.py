@@ -81,6 +81,9 @@ def test_bench_kernel_runs_on_cpu():
     # the CPU launches nothing: no kernel count, no floor, no launch bound
     assert r.launches_per_step > 100 and r.kernel_launches == {}
     assert r.launch_floor_s == 0.0 and r.bound_launch_s == 0.0
+    assert r.stream_launch_floor_s == 0.0 and r.graph_run_s == 0.0
+    assert (r.eager_slab_s, r.eager_host_queue_s) == (r.measured_slab_s,
+                                                      r.host_queue_s)
     assert 0 < r.host_queue_s < 10 * r.measured_slab_s
     # a warm step, a counted one, two timings each of 2 and 4, and 4 more
     assert r.steps_run == 2 + 2 * (2 + 4) + 4
