@@ -35,10 +35,13 @@ closing ``{"ok": true, ...}`` line is never printed):
 6. the batch path with full-u32 batches (the no-reference route, with
    the reference's ref16 so sites emit) on the 10 Mb pair, whole-file,
    against phase 4's exact output, through ``glfgen`` (``accumulate``
-   and ``assembly10`` only for batches deeper than 255);
+   and ``assembly10`` only for batches deeper than 255); each batch's
+   route (a key's first eager, later ones replays of its captured
+   step, at least one replay) and the graph pool's MiB;
 7. the port's CLI with the native library missing (pure-Python decode,
    u16 batches through ``glfgen16``) on a 1 Mb pair at 30x, in a
-   child process, against the port's native exact output;
+   child process, against the port's native exact output, with the
+   child's routes and pool as in phase 6;
 8. each kernel against its plain version again at every (B, D) its path
    ran in phases 4, 6 and 7 (read from the runs' per-depth counters),
    timed at the shape that carried the most columns: the times of the
@@ -58,8 +61,9 @@ closing ``{"ok": true, ...}`` line is never printed):
     ``SNIPER_MERGE_CHUNK=4096``;
 11. the exact f64 glfgen on the card: phase 6's full-u32 batch route
     with ``precision="exact"``, its lines byte-equal to phase 4's native
-    exact output, and the golden pair through the CLI with the native
-    library missing, exact, equal to ``tests/data/expected.vcf``;
+    exact output, its routes and pool as in phase 6, and the golden
+    pair through the CLI with the native library missing, exact, equal
+    to ``tests/data/expected.vcf``;
 12. ``sharded_call_batch`` over ``[cuda:0, cuda:0]`` (two streams) at
     (65536, 40) full-u32 and (8192, 48) raw lanes equal to the unsplit
     call, and ``dryrun_multichip`` over as many GPUs as the machine has;
@@ -87,7 +91,13 @@ closing ``{"ok": true, ...}`` line is never printed):
     dispatcher can pick (``ALLOWED_D``) at B = 8192, with and without
     joint priors, two input sets back to back; count and rows equal
     byte for byte, the same launch counts; each capture's time and the
-    graph pool's device memory printed.
+    graph pool's device memory printed;
+18. the captured batch step against the eager step: every (encoding,
+    precision, B bucket, D) key that phases 6, 7 and 11 sent through
+    the captured step, in a registry of its own, a key's first batch
+    eager, then captured and replayed, on two input sets: count and
+    rows byte-equal, the same launches; each key's capture ms, eager
+    and graphed ms and the host's queue ms of each, and the pool's MiB.
 
 Its first statements make ``import jax`` and ``import somatic_sniper_tpu``
 fail, so a pass also shows that the port needs neither; it imports only
@@ -690,6 +700,7 @@ def u32_batches(loaded, t_load: float, n_cols: int, exact_lines: list[str],
     contract, exact lines byte for byte.  Returns (launches, stats) of
     the counted run."""
     from somatic_sniper_tpu_torch import runner
+    from somatic_sniper_tpu_torch.models.step_graph import STEP_GRAPHS
     from somatic_sniper_tpu_torch.models.tables import device_tables
     from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
     from somatic_sniper_tpu_torch.utils.contract import diff_records, hist
@@ -729,6 +740,8 @@ def u32_batches(loaded, t_load: float, n_cols: int, exact_lines: list[str],
           f"device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} "
           "MiB", flush=True)
     print(f"  launches {launches}", flush=True)
+    check_batch_routes(stats, f"{precision} batches", precision,
+                       STEP_GRAPHS.pool_bytes(dev) / 2**20, must_replay=True)
     if precision == "fast":
         tol = diff_records(lines, want, "vcf")
         print(f"  contract ok, hist {json.dumps(hist(tol), sort_keys=True)}",
@@ -768,6 +781,52 @@ def check_batch_launches(launches: dict, stats: dict, fused: str,
             f"launched {launches}")
 
 
+BATCH_ROUTES = ("batches_dispatched", "batches_graphed", "batch_captures",
+                "batches_eager_first", "batches_eager_deep",
+                "batches_eager_split", "batches_eager_cpu")
+
+
+def batch_keys(stats: dict) -> dict:
+    """{(encoding, precision, B, D): batches} of the keys a batch run
+    sent through the captured step's route (its ``batch_key_*``
+    counters, runner.submit_call_batch)."""
+    out = {}
+    for k, v in stats.items():
+        if k.startswith("batch_key_"):
+            enc, precision, shape = k[len("batch_key_"):].split("_")
+            B, D = shape.split("x")
+            out[enc, precision, int(B), int(D)] = int(v)
+    return out
+
+
+def check_batch_routes(stats: dict, what: str, precision: str,
+                       pool_mib: float, must_replay: bool) -> None:
+    """A batch run's routes on the one card: every batch dispatched is a
+    key's first (eager), a replay of its key's captured step, or a fast
+    batch deeper than 255 (eager: its assembly waits on an error word);
+    one capture for each key that came twice; no split, no CPU route.
+    With ``must_replay``, at least one key replayed."""
+    routes = {k: int(stats.get(k, 0)) for k in BATCH_ROUTES}
+    keys = batch_keys(stats)
+    deep = precision == "fast" and any(
+        D > 255 for _, D in path_shapes(stats, "batch_columns_at_depth_",
+                                        lambda n: n))
+    print(f"  {what}: routes {json.dumps(routes)}; {len(keys)} keys "
+          "(encoding, precision, B, D: batches) " + ", ".join(
+              f"{e} {p} {B}x{D}: {n}" for (e, p, B, D), n in
+              sorted(keys.items())) + f"; the graph pool holds "
+          f"{pool_mib:.1f} MiB", flush=True)
+    if (routes["batches_dispatched"] != routes["batches_eager_first"]
+            + routes["batches_graphed"] + routes["batches_eager_deep"]
+            or routes["batches_eager_first"] != len(keys)
+            or routes["batch_captures"] != sum(n >= 2 for n in keys.values())
+            or (routes["batches_eager_deep"] > 0) != deep
+            or routes["batches_eager_split"] or routes["batches_eager_cpu"]
+            or (must_replay and routes["batches_graphed"] == 0)):
+        raise AssertionError(f"{what}: routes {routes}, keys {keys}, "
+                             f"deeper than 255: {deep}")
+
+
 NO_NATIVE_CHILD = """\
 import json, sys
 sys.modules["jax"] = None
@@ -781,8 +840,10 @@ if native_api.available():
 STATS.reset()
 gk.reset_launches()
 rc = main(sys.argv[1:])
+from somatic_sniper_tpu_torch.models.step_graph import STEP_GRAPHS
 print(STATS.summary())
-print(json.dumps({"launches": gk.LAUNCHES, "stats": STATS.snapshot()}))
+print(json.dumps({"launches": gk.LAUNCHES, "stats": STATS.snapshot(),
+                  "pool_mib": STEP_GRAPHS.pool_bytes("cuda") / 2**20}))
 sys.exit(rc)
 """
 
@@ -828,6 +889,8 @@ def cli_without_native(out_dir: Path, torch) -> tuple[dict, dict]:
     print(f"  contract ok, hist {json.dumps(hist(tol), sort_keys=True)}",
           flush=True)
     check_batch_launches(launches, stats, "glfgen16", "accumulate16")
+    check_batch_routes(stats, "u16 batches (child)", "fast",
+                       child["pool_mib"], must_replay=False)
     return launches, stats
 
 
@@ -1268,9 +1331,117 @@ def graphed_against_eager(dev, torch, B: int = 8192) -> None:
     print(f"  {len(caps)} captured steps in this process, the graph pool "
           f"holds {STEP_GRAPHS.pool_bytes(dev) / 2**20:.1f} MiB of device "
           f"memory; captures of the other phases: " + ", ".join(
-              f"B={k[1]} D={k[2]} joint={k[3].use_joint_priors} "
+              f"{'slab' if k[5].packed16 is None else 'batch'} B={k[1]} "
+              f"D={k[2]} joint={k[3].use_joint_priors} {k[5].precision} "
               f"{1e3 * v:.1f} ms" for k, v in caps.items()
               if k[3].min_somatic_qual != 0), flush=True)
+
+
+def batch_upload(B: int, D: int, seed: int, packed16: bool):
+    """A random two-sample batch in the batch path's upload layout
+    (runner.submit_call_batch): (stacked [2, B, D] int32 slot words or
+    uint16 lanes, meta int32 [3, B] or [7, B])."""
+    import numpy as np
+
+    s_t, d_t, ref16 = random_u32_lanes(B, D, seed)
+    s_n, d_n, _ = random_u32_lanes(B, D, seed + 1000)
+    if not packed16:
+        return np.stack([s_t, s_n]), np.stack([d_t, d_n, ref16])
+    rows = [d_t, d_n, ref16]
+    lanes = []
+    for s, d in ((s_t, d_t), (s_n, d_n)):
+        t16, nk = packed16_lanes(s, d, ref16)
+        lanes.append(t16)
+        rows.append(nk)
+    for s, d in ((s_t, d_t), (s_n, d_n)):
+        w = s.view(np.uint32)
+        keep = ((np.arange(D)[None, :] < d[:, None])
+                & (((w >> 21) & 1) == 0))
+        m7 = np.minimum(w & 0x7F, 60).astype(np.int64)
+        rows.append(np.where(keep, m7 * m7, 0).sum(axis=1))
+    return np.stack(lanes), np.stack(rows).astype(np.int32)
+
+
+def step_times(fn, torch, reps: int = 5) -> tuple[float, float]:
+    """(ms a call on the stream, host ms to queue a call): ``reps``
+    calls back to back between two CUDA events after a warm call; the
+    host clock around the queueing."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - h0
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps, 1e3 * host_s / reps
+
+
+def graphed_batches_against_eager(keys, dev, torch) -> None:
+    """Phase 18: every (encoding, precision, B, D) key the batch runs of
+    phases 6, 7 and 11 sent through the captured step, in a registry of
+    its own: two random input sets, the first batch eager, the same set
+    captured and replayed, the second set replayed, each count and rows
+    byte-equal to the eager step on its inputs with the same launches;
+    the capture's ms, the eager and graphed step's ms on the stream and
+    the host's ms to queue each, and the pool's MiB."""
+    from somatic_sniper_tpu_torch.models.step_graph import (SlabStepGraph,
+                                                            StepSpec)
+    from somatic_sniper_tpu_torch.models.tables import (ModelParams,
+                                                        build_tables,
+                                                        device_tables)
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+    from somatic_sniper_tpu_torch.runner import MAX_EMIT
+
+    t0 = time.perf_counter()
+    params = ModelParams()
+    tabs = build_tables(params)
+    graphs = SlabStepGraph()
+    for enc, precision, B, D in sorted(keys):
+        packed16 = enc == "u16"
+        spec = StepSpec(packed16, precision, min(MAX_EMIT, B))
+        dtabs = device_tables(tabs, dev, precision)
+        sets = [batch_upload(B, D, seed, packed16) for seed in (D, D + 1)]
+        on_card = [tuple(torch.from_numpy(a).to(dev) for a in st)
+                   for st in sets]
+        eager = []
+        for s, m in on_card:
+            gk.reset_launches()
+            res = spec.score(s, m, dtabs, params)
+            n = int(res.count)
+            eager.append((n, res.rows[:n].cpu().numpy().tobytes(),
+                          dict(gk.LAUNCHES)))
+        for i, want in ((0, "first"), (0, "capture"), (1, "replay")):
+            gk.reset_launches()
+            route, res = graphs.run_batch(*sets[i], dtabs, params, dev,
+                                          spec)
+            n = int(res.count)
+            got = (n, res.rows[:n].cpu().numpy().tobytes(),
+                   dict(gk.LAUNCHES))
+            if route != want or got != eager[i]:
+                raise AssertionError(
+                    f"{enc} {precision} {(B, D)}, set {i}: route {route} "
+                    f"(expected {want}), {n} rows against {eager[i][0]}, "
+                    f"launches {got[2]} against {eager[i][2]}")
+        key = graphs.key(dev, B, D, params, dtabs, spec)
+        step = graphs.step(B, D, dtabs, params, dev, spec)
+        s, m = on_card[1]
+        eager_ms, eager_q = step_times(
+            lambda: spec.score(s, m, dtabs, params), torch)
+        graphed_ms, graphed_q = step_times(step.replay, torch)
+        print(f"  {enc} {precision:5s} B={B:5d} D={D:4d}: count and rows "
+              f"byte-equal to the eager step on two input sets ({eager[0][0]}"
+              f", {eager[1][0]} rows), launches "
+              f"{ {k: v for k, v in eager[0][2].items() if v} }; "
+              f"capture {1e3 * graphs.captures()[key]:.1f} ms; eager "
+              f"{eager_ms:.3f} ms (queued in {eager_q:.3f}), graphed "
+              f"{graphed_ms:.3f} ms (queued in {graphed_q:.3f}); pool "
+              f"{graphs.pool_bytes(dev) / 2**20:.1f} MiB", flush=True)
+    print(f"  {len(graphs.captures())} captured batch steps, their pool "
+          f"{graphs.pool_bytes(dev) / 2**20:.1f} MiB; phase 18 took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def entry_on_card(torch) -> None:
@@ -1467,7 +1638,7 @@ def main() -> int:
     from somatic_sniper_tpu_torch.ops import build
     from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
     from somatic_sniper_tpu_torch.parallel.slab import slab_b
-    from somatic_sniper_tpu_torch.runner import MAX_BATCH
+    from somatic_sniper_tpu_torch.runner import MAX_BATCH, _b_bucket
     from somatic_sniper_tpu_torch.utils.contract import diff_records, hist
     from somatic_sniper_tpu_torch.utils.stats import STATS
 
@@ -1594,13 +1765,14 @@ def main() -> int:
 
     phase("8 kernels at the shapes the paths ran")
     # slabs are slab_b() columns; a batch holds at most max_batch
-    # columns of one depth, so its largest is min(columns, max_batch)
+    # columns of one depth, so its largest is min(columns, max_batch),
+    # padded to its bucket
     shapes = {
         "slab": path_shapes(stats, "slabs_at_depth_", lambda n: slab_b()),
         "u32": path_shapes(stats_u32, "batch_columns_at_depth_",
-                           lambda n: min(n, MAX_BATCH)),
+                           lambda n: _b_bucket(min(n, MAX_BATCH))),
         "u16": path_shapes(stats_u16, "batch_columns_at_depth_",
-                           lambda n: min(n, MAX_BATCH)),
+                           lambda n: _b_bucket(min(n, MAX_BATCH))),
     }
     print(f"  shapes, most-used first: {json.dumps(shapes)}", flush=True)
     at_path = kernels_at_path_shapes(shapes, dtabs, dev, torch, floor_ms)
@@ -1615,8 +1787,9 @@ def main() -> int:
     launches_coll = collective_runs(common, out_dir, fast_lines, n_cols)
 
     phase("11 the exact f64 glfgen on the card")
-    u32_batches(loaded, t_load, n_cols, body_lines(out_dir / "exact.vcf"),
-                dev, torch, precision="exact")
+    _, stats_exact = u32_batches(loaded, t_load, n_cols,
+                                 body_lines(out_dir / "exact.vcf"), dev,
+                                 torch, precision="exact")
     del loaded
     exact_golden_without_native(out_dir)
 
@@ -1638,6 +1811,11 @@ def main() -> int:
 
     phase("17 the captured step against the eager step")
     graphed_against_eager(dev, torch)
+
+    phase("18 the captured batch step against the eager step")
+    graphed_batches_against_eager(
+        {key for st in (stats_u32, stats_u16, stats_exact)
+         for key in batch_keys(st)}, dev, torch)
 
     # each kernel's launches from the phase that ran it, its times at
     # the main shape of its path (phase 8)

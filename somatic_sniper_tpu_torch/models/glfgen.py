@@ -196,7 +196,8 @@ def pack_info(cols: ColumnBatch) -> tuple[torch.Tensor, torch.Tensor]:
     return key, keep.sum(dim=1, dtype=I32)
 
 
-def _exact_accumulate(info_sorted, n, fk, cap_mapq: int, max_w: int = 255):
+def _exact_accumulate(info_sorted, n, fk, cap_mapq: int, max_w: int = 255,
+                      steps: int | None = None):
     """(esum f32[B,4], fsum f32[B,4], c i32[B,4], rms i64[B]) of the
     reference's descending scan (glfgen.py:147-198, reference
     sniper_maqcns.c:160-176) over keys sorted ascending.
@@ -209,7 +210,18 @@ def _exact_accumulate(info_sorted, n, fk, cap_mapq: int, max_w: int = 255):
     one sorted position's terms to the eight sums in f64 and rounds them
     back to f32, from the highest key down, so every class sees its reads
     in the reference's order (a term of 0.0 leaves a sum's bits as they
-    were)."""
+    were).
+
+    The sum visits the top ``steps`` positions: by default all D on a
+    card, as the JAX package's scan does (a fixed trip count is what a
+    captured CUDA graph needs: it allows no read of ``n`` on the host),
+    and on the CPU only the deepest column's, ``min(n.max(), D)``.  Both
+    give the same bits.  The positions past a column's ``n`` come first
+    in the descending visit, and each adds terms of +0.0 to sums that are
+    still +0.0: a term is a 0/1 mask times ``fk[w] * effq`` or ``fk[w]``,
+    finite and non-negative, so the product is never -0.0 (nor NaN), and
+    +0.0 + +0.0 is +0.0.  From the column's ``n`` down the two visits are
+    the same steps."""
     B, D = info_sorted.shape
     dev = info_sorted.device
     j_idx = torch.arange(D, device=dev)[None, :]
@@ -231,8 +243,9 @@ def _exact_accumulate(info_sorted, n, fk, cap_mapq: int, max_w: int = 255):
     terms = torch.cat([oh4.to(F64) * (fkw * effq.to(F64))[:, :, None],
                        oh4.to(F64) * fkw[:, :, None]], dim=2)  # [B, D, 8]
     sums = torch.zeros((B, 8), dtype=F32, device=dev)
-    top = int(n.max()) if B else 0
-    for j in range(min(top, D) - 1, -1, -1):
+    if steps is None:
+        steps = D if dev.type == "cuda" else min(int(n.max()) if B else 0, D)
+    for j in range(steps - 1, -1, -1):
         sums = (sums.to(F64) + terms[:, j]).to(F32)
     c = oh4.sum(dim=1, dtype=I32)
     mq = (info_sorted & 0x7F).clamp(max=cap_mapq)

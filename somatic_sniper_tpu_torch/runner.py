@@ -4,7 +4,9 @@ The host helpers below are jax-free copies of somatic_sniper_tpu/runner.py
 (the port imports nothing of the JAX package); each names its source
 lines.  The device path
 is the port's: ``TorchSlabDispatcher`` and the batch path
-(``submit_batches`` / ``collect_pending``) over ``models.somatic``.
+(``submit_batches`` / ``collect_pending``) over ``models.somatic``; on
+a card each replays a captured CUDA graph of its scoring step a shape
+(``models.step_graph``).
 
 Exact precision with native pileups and a reference runs entirely in
 the native host layer, as in the JAX package.  Fast precision with them
@@ -422,37 +424,77 @@ def _prefilter_flags(pu_t, pu_n, ref_blob, ref_off, tabs):
     return ft, fn
 
 
+def _pad_b(arr: np.ndarray, B: int) -> np.ndarray:
+    """Pad the leading (batch) axis to B with zeros (runner.py:719-724)."""
+    if arr.shape[0] == B:
+        return arr
+    pad = [(0, B - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1)
+    return np.pad(arr, pad)
+
+
+def _b_bucket(b: int, minimum: int = 256) -> int:
+    """The padded batch size of ``b`` columns (runner.py:737-747):
+    powers of two from ``minimum`` to 2048, then multiples of 2048.
+    Each bucket is one captured step a (D, encoding, precision), as it
+    was one XLA executable in the JAX package."""
+    B = minimum
+    while B < b and B < 2048:
+        B *= 2
+    if B >= b:
+        return B
+    return ((b + 2047) // 2048) * 2048
+
+
 def submit_call_batch(batch: PairedBatch, ref16: np.ndarray,
                       dtabs: DeviceTables, device, compact: bool = True,
                       precision: str = "fast"):
-    """Upload one batch and score it on ``device`` (runner.py:750-812):
-    one stacked upload of the two slot arrays (u16 stays u16, half the
-    bytes) and one of the metadata rows; with a ``data_mesh``, each
-    device is sent its part of the two and the results are gathered on
-    the first.  Returns the on-device CompactResult (i32 rows,
-    K = min(MAX_EMIT, B)) when ``compact``, else the full CallResult.
-    The JAX package padded the batch axis to a few bucket sizes
-    (``_b_bucket``, :737-747) only to bound XLA recompiles; torch needs
-    no such padding, and padded rows were empty and changed no output
-    (so a part may be of any size, where the source needed the batch to
-    divide by the mesh).  A batch is scored eagerly, in either precision:
-    its B varies from batch to batch, where the slab path's fixed shape
-    is what lets it replay one captured graph (models/step_graph.py)."""
+    """Upload one batch and score it on ``device`` (runner.py:750-812),
+    without waiting for it: one stacked upload of the two slot arrays
+    (u16 stays u16, half the bytes) and one of the metadata rows, the
+    batch axis padded to its bucket (``_b_bucket``) with empty columns
+    (depth 0: they never emit).  Returns the on-device CompactResult
+    (i32 rows, K = min(MAX_EMIT, bucket)) when ``compact``, else the
+    full CallResult of the batch's own columns.
+
+    Each compact batch takes one route, counted in STATS:
+
+    * with a ``data_mesh`` (more than one GPU) each device is sent its
+      part of the two uploads and scored eagerly, the results gathered
+      on the first (``batches_eager_split``);
+    * a fast batch deeper than ``MAX_D`` eagerly: its stand-alone
+      ``assembly10`` waits on an error word, a host read no capture
+      allows (``batches_eager_deep``);
+    * on the CPU the eager step over the plain versions
+      (``batches_eager_cpu``);
+    * else the key's captured step (``models/step_graph.STEP_GRAPHS``):
+      a key's first batch eagerly (``batches_eager_first``), its second
+      captured (``batch_captures``), the others replayed; every batch
+      that replays counts in ``batches_graphed``.
+
+    The full CallResult (the overflow refetch, ``run_call_batch``) is
+    scored eagerly.  A failed capture or replay raises: nothing scores
+    the batch eagerly in its place."""
     import torch
 
-    from .models.somatic import (call_batch_stacked, compact_rows,
-                                 stacked_column_batches)
+    from .models import step_graph
+    from .models.somatic import (MAX_D, CallResult, call_batch,
+                                 compact_rows, stacked_column_batches)
 
-    B = len(batch.keys)
-    stacked_h = np.stack([batch.tumor, batch.normal])
+    b0 = len(batch.keys)
+    B = _b_bucket(b0)
+    stacked_h = np.stack([_pad_b(batch.tumor, B), _pad_b(batch.normal, B)])
     meta_rows = [batch.n_tumor, batch.n_normal, ref16]
     if batch.packed16:
         meta_rows += [batch.nk_tumor, batch.nk_normal, batch.rms_tumor,
                       batch.rms_normal]
     else:
         stacked_h = stacked_h.view(np.int32)
-    meta_h = np.stack([np.asarray(r, np.int32) for r in meta_rows])
-    STATS.add("device_columns", B)
+    meta_h = np.stack([_pad_b(np.asarray(r, np.int32), B)
+                       for r in meta_rows])
+    STATS.add("device_columns", b0)
+    device = torch.device(device)
+    graphs = step_graph.STEP_GRAPHS
+    deep = precision == "fast" and stacked_h.shape[2] > MAX_D
     mesh = data_mesh(device)
     if mesh is not None:
         from .parallel.sharding import sharded_call_batch
@@ -464,15 +506,33 @@ def submit_call_batch(batch: PairedBatch, ref16: np.ndarray,
             res = sharded_call_batch(mesh, cb_t, cb_n,
                                      dtabs_for(dtabs.params, precision),
                                      dtabs.params, precision)
-            STATS.add("batches_split", 1)
-            return compact_rows(res, MAX_EMIT) if compact else res
-    with STATS.timer("device.upload"):
-        stacked = torch.from_numpy(stacked_h).to(device)
-        meta = torch.from_numpy(meta_h).to(device)
-    with STATS.timer("device.score"):
-        return call_batch_stacked(stacked, meta, dtabs, dtabs.params,
-                                  packed16=batch.packed16, compact=compact,
-                                  max_emit=MAX_EMIT, precision=precision)
+        STATS.add("batches_eager_split", 1)
+    elif compact and not deep and graphs.captures_on(device):
+        spec = step_graph.StepSpec(batch.packed16, precision,
+                                   min(MAX_EMIT, B))
+        route, res = graphs.run_batch(stacked_h, meta_h, dtabs,
+                                      dtabs.params, device, spec)
+        STATS.add("batches_eager_first" if route == "first"
+                  else "batches_graphed", 1)
+        if route == "capture":
+            STATS.add("batch_captures", 1)
+        STATS.add(f"batch_key_{'u16' if batch.packed16 else 'u32'}_"
+                  f"{precision}_{B}x{stacked_h.shape[2]}", 1)
+        return res
+    else:
+        with STATS.timer("device.upload"):
+            stacked = torch.from_numpy(stacked_h).to(device)
+            meta = torch.from_numpy(meta_h).to(device)
+        with STATS.timer("device.score"):
+            res = call_batch(*stacked_column_batches(stacked, meta,
+                                                     batch.packed16),
+                             dtabs, dtabs.params, precision)
+        if compact:
+            STATS.add("batches_eager_deep" if deep
+                      else "batches_eager_cpu", 1)
+    if not compact:
+        return CallResult(*(v if v is None else v[:b0] for v in res))
+    return compact_rows(res, MAX_EMIT)
 
 
 def run_call_batch(batch: PairedBatch, ref16: np.ndarray,

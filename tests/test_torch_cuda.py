@@ -607,3 +607,109 @@ def test_failed_capture_raises_on_card(dev, monkeypatch):
     disp._collector.shutdown()
     assert graphs.captures() == {}
     torch.cuda.synchronize()  # the card is still usable
+
+
+def _card_batch(b0, D, seed, packed16):
+    """A PairedBatch of ``b0`` columns, its ref16, and the upload padded
+    to its bucket as runner.submit_call_batch pads it."""
+    from somatic_sniper_tpu_torch import runner
+    from somatic_sniper_tpu_torch.pileup.columnize import PairedBatch
+
+    stacked, meta = random_stacked(b0, D, seed, packed16)
+    extra = (dict(nk_tumor=meta[3], nk_normal=meta[4], rms_tumor=meta[5],
+                  rms_normal=meta[6]) if packed16 else {})
+    batch = PairedBatch(keys=np.arange(b0, dtype=np.int64), ref16=meta[2],
+                        tumor=stacked[0], normal=stacked[1],
+                        n_tumor=meta[0], n_normal=meta[1], **extra)
+    B = runner._b_bucket(b0)
+    padded = (np.stack([runner._pad_b(x, B) for x in stacked]),
+              np.stack([runner._pad_b(x, B) for x in meta]))
+    return batch, meta[2], padded
+
+
+@pytest.mark.parametrize("packed16,precision,b0", [
+    (False, "fast", 65536), (True, "fast", 65536), (False, "exact", 65536),
+    (False, "fast", 5000),
+], ids=["u32-fast", "u16-fast", "u32-exact", "u32-fast-tail"])
+def test_graphed_batch_step_equals_eager_on_card(dev, monkeypatch, packed16,
+                                                 precision, b0):
+    """Three batches of one key through runner.submit_call_batch, left
+    pending: the first eager, the second captured, the third replayed;
+    each one's count and rows byte-equal to the eager step on the same
+    padded upload, and the same kernel launches (a tail of 5000 columns
+    pads to 6144)."""
+    from somatic_sniper_tpu_torch import runner
+    from somatic_sniper_tpu_torch.models import step_graph as sg
+    from somatic_sniper_tpu_torch.utils.stats import STATS
+
+    graphs = sg.SlabStepGraph()
+    monkeypatch.setattr(sg, "STEP_GRAPHS", graphs)
+    monkeypatch.setenv("SNIPER_NO_MESH", "1")
+    D = 40
+    params = T.ModelParams(min_somatic_qual=0)
+    dtabs = device_tables(T.build_tables(params), dev, precision)
+    STATS.reset()
+    pending, eager_launches = [], []
+    for seed in (1, 2, 3):
+        batch, ref16, padded = _card_batch(b0, D, seed, packed16)
+        before = dict(gk.LAUNCHES)
+        res = runner.submit_call_batch(batch, ref16, dtabs, dev,
+                                       precision=precision)
+        pending.append((res, {k: gk.LAUNCHES[k] - before[k] for k in before},
+                        padded))
+    snap = STATS.snapshot()
+    assert (snap["batches_eager_first"], snap["batch_captures"],
+            snap["batches_graphed"]) == (1, 1, 2)
+    B = runner._b_bucket(b0)
+    answers = []
+    for res, launches, (stacked, meta) in pending:
+        s = torch.from_numpy(stacked if packed16
+                             else stacked.view(np.int32)).to(dev)
+        before = dict(gk.LAUNCHES)
+        want = ts.call_batch_stacked(
+            s, torch.from_numpy(meta).to(dev), dtabs, params,
+            packed16=packed16, max_emit=min(runner.MAX_EMIT, B),
+            precision=precision)
+        eager_launches.append({k: gk.LAUNCHES[k] - before[k]
+                               for k in before})
+        n, n_e = int(res.count), int(want.count)
+        assert n == n_e > 0
+        rows, rows_e = res.rows.cpu().numpy(), want.rows.cpu().numpy()
+        assert rows.shape == rows_e.shape == (min(runner.MAX_EMIT, B), 17)
+        assert rows[:n].tobytes() == rows_e[:n].tobytes()
+        answers.append(rows[:n].tobytes())
+        assert launches == eager_launches[-1]
+    assert len(set(answers)) == 3
+    fused = {(False, "fast"): "glfgen", (True, "fast"): "glfgen16"}
+    assert eager_launches[0] == {
+        k: 2 if k == fused.get((packed16, precision)) else 0
+        for k in gk.LAUNCHES}
+    assert len(graphs.captures()) == 1
+
+
+def test_failed_batch_capture_raises_on_card(dev, monkeypatch):
+    """A batch step that reads a value back to the host cannot be
+    captured: the key's second batch raises, and no eager step scores
+    it in its place."""
+    from somatic_sniper_tpu_torch import runner
+    from somatic_sniper_tpu_torch.models import step_graph as sg
+
+    def reads_back(*args, **kwargs):
+        res = ts.call_batch_stacked(*args, **kwargs)
+        int(res.count)  # a host read: no capture allows it
+        return res
+
+    graphs = sg.SlabStepGraph()
+    monkeypatch.setattr(sg, "STEP_GRAPHS", graphs)
+    monkeypatch.setattr(sg, "call_batch_stacked", reads_back)
+    monkeypatch.setenv("SNIPER_NO_MESH", "1")
+    params = T.ModelParams()
+    dtabs = device_tables(T.build_tables(params), dev)
+    batch, ref16, _ = _card_batch(1000, 24, 4, True)
+    runner.submit_call_batch(batch, ref16, dtabs, dev)
+    before = dict(gk.LAUNCHES)
+    with pytest.raises(RuntimeError):
+        runner.submit_call_batch(batch, ref16, dtabs, dev)
+    assert graphs.captures() == {}
+    assert dict(gk.LAUNCHES) == before
+    torch.cuda.synchronize()  # the card is still usable

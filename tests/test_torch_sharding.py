@@ -207,7 +207,7 @@ def test_submit_call_batch_under_a_mesh(packed16):
         got = runner.submit_call_batch(batch, meta[2], dtabs, CPU)
         got_full = runner.submit_call_batch(batch, meta[2], dtabs, CPU,
                                             compact=False)
-    assert STATS.snapshot().get("batches_split") == 2
+    assert STATS.snapshot().get("batches_eager_split") == 2
     assert int(got.count) == int(want.count) > 0
     assert torch.equal(got.rows, want.rows)
     _assert_equal_results(got_full, full)

@@ -26,7 +26,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
-from tests.torch_port_util import f32_tables, random_slab  # noqa: E402
+from tests.torch_port_util import (eager_stand_in,  # noqa: E402
+                                   f32_tables, random_slab)
 
 from somatic_sniper_tpu.models import somatic as js  # noqa: E402
 from somatic_sniper_tpu.models import tables as JT  # noqa: E402
@@ -38,22 +39,6 @@ from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk  # noqa: E402
 
 CPU = torch.device("cpu")
 REPO = Path(__file__).resolve().parents[1]
-
-
-def eager_stand_in(step, stream, pool):
-    """The eager step in place of a CUDA graph: its outputs, and a
-    replay that scores the static inputs again into them, counting no
-    launch (a graph's replay runs no wrapper)."""
-    out = step()
-
-    def replay():
-        before = dict(gk.LAUNCHES)
-        new = step()
-        gk.LAUNCHES.update(before)
-        out.count.copy_(new.count)
-        out.rows.copy_(new.rows)
-
-    return out, replay
 
 
 @pytest.fixture
