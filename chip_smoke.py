@@ -1,6 +1,11 @@
 """Smoke run of the torch port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards   # the split over two cards or more
+
+The second form needs two GPUs or more and runs only the split over
+distinct cards (phase 12 over ``[cuda:0, cuda:1]`` and every card, and
+the 10 Mb pair with ``prefilter=False`` whole and split); see ``cards``.
 
 Phases (each raises on failure, so a failed phase exits non-zero and the
 closing ``{"ok": true, ...}`` line is never printed):
@@ -37,7 +42,9 @@ closing ``{"ok": true, ...}`` line is never printed):
    against phase 4's exact output, through ``glfgen`` (``accumulate``
    and ``assembly10`` only for batches deeper than 255); each batch's
    route (a key's first eager, later ones replays of its captured
-   step, at least one replay) and the graph pool's MiB;
+   step, at least one replay; no retired eager route
+   ``batches_eager_deep`` / ``batches_eager_split``) and the graph
+   pool's MiB;
 7. the port's CLI with the native library missing (pure-Python decode,
    u16 batches through ``glfgen16``) on a 1 Mb pair at 30x, in a
    child process, against the port's native exact output, with the
@@ -67,6 +74,12 @@ closing ``{"ok": true, ...}`` line is never printed):
 12. ``sharded_call_batch`` over ``[cuda:0, cuda:0]`` (two streams) at
     (65536, 40) full-u32 and (8192, 48) raw lanes equal to the unsplit
     call, and ``dryrun_multichip`` over as many GPUs as the machine has;
+    then the captured split (``parallel.sharding.graphed_split``: one
+    captured step a part) at the same two shapes, the slab step and the
+    fast batch step, three input sets each: count and rows byte-equal to
+    the unsplit captured step and to the eager split, four fused
+    launches a call, its ms and host queue ms beside the unsplit graphed
+    step's and the eager split's, each part's capture ms and the pool;
 13. ``utils.mfu.bench_kernel`` on the card at (8192, 48), the production
     slab, and at (32768, 64): every step launched ``glfgen32`` twice and
     no stand-alone kernel, one step's rows equal those of the same step
@@ -97,7 +110,16 @@ closing ``{"ok": true, ...}`` line is never printed):
     the captured step, in a registry of its own, a key's first batch
     eager, then captured and replayed, on two input sets: count and
     rows byte-equal, the same launches; each key's capture ms, eager
-    and graphed ms and the host's queue ms of each, and the pool's MiB.
+    and graphed ms and the host's queue ms of each, and the pool's MiB;
+    a fast key of depth 300 among them; then a count pushed outside the
+    assembly tables before that key's replay: its error word set, and
+    ``collect_pending`` raising the stand-alone ``assembly10``'s
+    ValueError;
+19. phase 15's ``prefilter=False`` run under ``forced_mesh([cuda:0,
+    cuda:0])``: bytes (so the sha256) equal to phase 4's fast output,
+    every slab split and replayed a part a captured step
+    (``slabs_split`` = ``slabs_graphed`` = ``slabs_dispatched``, glfgen32
+    four times a slab), wall, cols/s and the graph pool.
 
 Its first statements make ``import jax`` and ``import somatic_sniper_tpu``
 fail, so a pass also shows that the port needs neither; it imports only
@@ -740,7 +762,7 @@ def u32_batches(loaded, t_load: float, n_cols: int, exact_lines: list[str],
           f"device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} "
           "MiB", flush=True)
     print(f"  launches {launches}", flush=True)
-    check_batch_routes(stats, f"{precision} batches", precision,
+    check_batch_routes(stats, f"{precision} batches",
                        STEP_GRAPHS.pool_bytes(dev) / 2**20, must_replay=True)
     if precision == "fast":
         tol = diff_records(lines, want, "vcf")
@@ -782,8 +804,11 @@ def check_batch_launches(launches: dict, stats: dict, fused: str,
 
 
 BATCH_ROUTES = ("batches_dispatched", "batches_graphed", "batch_captures",
-                "batches_eager_first", "batches_eager_deep",
-                "batches_eager_split", "batches_eager_cpu")
+                "batches_eager_first", "batches_graphed_split",
+                "batch_captures_split", "batches_split", "batches_unsplit",
+                "batches_eager_cpu")
+# the eager routes of earlier builds: none may run on a card any more
+RETIRED_ROUTES = ("batches_eager_deep", "batches_eager_split")
 
 
 def batch_keys(stats: dict) -> dict:
@@ -799,32 +824,38 @@ def batch_keys(stats: dict) -> dict:
     return out
 
 
-def check_batch_routes(stats: dict, what: str, precision: str,
-                       pool_mib: float, must_replay: bool) -> None:
-    """A batch run's routes on the one card: every batch dispatched is a
-    key's first (eager), a replay of its key's captured step, or a fast
-    batch deeper than 255 (eager: its assembly waits on an error word);
-    one capture for each key that came twice; no split, no CPU route.
-    With ``must_replay``, at least one key replayed."""
+def check_batch_routes(stats: dict, what: str, pool_mib: float,
+                       must_replay: bool,
+                       split: bool = False) -> None:
+    """A batch run's routes on the card: every batch dispatched is a
+    key's first (eager) or a replay of its key's captured step, at
+    every depth (a fast batch deeper than 255 included); one capture
+    for each key that came twice; no CPU route and no retired eager
+    route.  With ``split`` every batch went in parts over the mesh (one
+    captured step a part), else none did.  With ``must_replay``, at
+    least one key replayed."""
     routes = {k: int(stats.get(k, 0)) for k in BATCH_ROUTES}
     keys = batch_keys(stats)
-    deep = precision == "fast" and any(
-        D > 255 for _, D in path_shapes(stats, "batch_columns_at_depth_",
-                                        lambda n: n))
+    graphed, captures = ("batches_graphed_split", "batch_captures_split") \
+        if split else ("batches_graphed", "batch_captures")
     print(f"  {what}: routes {json.dumps(routes)}; {len(keys)} keys "
           "(encoding, precision, B, D: batches) " + ", ".join(
               f"{e} {p} {B}x{D}: {n}" for (e, p, B, D), n in
               sorted(keys.items())) + f"; the graph pool holds "
           f"{pool_mib:.1f} MiB", flush=True)
+    retired = {k: stats[k] for k in RETIRED_ROUTES if stats.get(k)}
     if (routes["batches_dispatched"] != routes["batches_eager_first"]
-            + routes["batches_graphed"] + routes["batches_eager_deep"]
+            + routes[graphed]
+            or routes["batches_graphed_split" if not split
+                      else "batches_graphed"]
             or routes["batches_eager_first"] != len(keys)
-            or routes["batch_captures"] != sum(n >= 2 for n in keys.values())
-            or (routes["batches_eager_deep"] > 0) != deep
-            or routes["batches_eager_split"] or routes["batches_eager_cpu"]
-            or (must_replay and routes["batches_graphed"] == 0)):
+            or routes[captures] != sum(n >= 2 for n in keys.values())
+            or routes["batches_split"] != (routes["batches_dispatched"]
+                                           if split else 0)
+            or routes["batches_eager_cpu"] or retired
+            or (must_replay and routes[graphed] == 0)):
         raise AssertionError(f"{what}: routes {routes}, keys {keys}, "
-                             f"deeper than 255: {deep}")
+                             f"retired routes {retired}")
 
 
 NO_NATIVE_CHILD = """\
@@ -889,8 +920,8 @@ def cli_without_native(out_dir: Path, torch) -> tuple[dict, dict]:
     print(f"  contract ok, hist {json.dumps(hist(tol), sort_keys=True)}",
           flush=True)
     check_batch_launches(launches, stats, "glfgen16", "accumulate16")
-    check_batch_routes(stats, "u16 batches (child)", "fast",
-                       child["pool_mib"], must_replay=False)
+    check_batch_routes(stats, "u16 batches (child)", child["pool_mib"],
+                       must_replay=False)
     return launches, stats
 
 
@@ -1100,11 +1131,11 @@ def exact_golden_without_native(out_dir: Path) -> None:
           flush=True)
 
 
-def split_batches(dtabs, dev, torch) -> dict:
-    """Phase 12: ``sharded_call_batch`` over the one card twice (two
-    parts, each on a stream of its own) against the unsplit call, every
-    field equal; then the dry run over the machine's GPUs.  Returns the
-    launches of the split calls."""
+def split_batches(dtabs, dev, torch, mesh=None) -> dict:
+    """Phase 12: ``sharded_call_batch`` over ``mesh``, by default the one
+    card twice (two parts, each on a stream of its own), against the
+    unsplit call, every field equal; then the dry run over the
+    machine's GPUs.  Returns the launches of the split calls."""
     from somatic_sniper_tpu_torch.models.glfgen import ColumnBatch
     from somatic_sniper_tpu_torch.models.somatic import call_batch
     from somatic_sniper_tpu_torch.models.tables import ModelParams
@@ -1114,7 +1145,8 @@ def split_batches(dtabs, dev, torch) -> dict:
     from somatic_sniper_tpu_torch.runner import dtabs_for
 
     params = ModelParams()
-    mesh = [dev, dev]
+    mesh = mesh or [dev, dev]
+    n_launch = 2 * len(mesh)
     total = {}
     for B, D, raw in ((65536, 40, False), (8192, 48, True)):
         batches = []
@@ -1139,10 +1171,11 @@ def split_batches(dtabs, dev, torch) -> dict:
                                        params)
             torch.cuda.synchronize()
             name = "glfgen32" if raw else "glfgen"
-            if gk.LAUNCHES[name] != 4 or sum(gk.LAUNCHES.values()) != 4:
-                raise AssertionError(f"two parts of two samples launched "
-                                     f"{gk.LAUNCHES}")
-            total[name] = total.get(name, 0) + 4
+            if (gk.LAUNCHES[name] != n_launch
+                    or sum(gk.LAUNCHES.values()) != n_launch):
+                raise AssertionError(f"{len(mesh)} parts of two samples "
+                                     f"launched {gk.LAUNCHES}")
+            total[name] = total.get(name, 0) + n_launch
             for f, a, b in zip(whole._fields, split, whole):
                 if (a is None) != (b is None) or (
                         a is not None and not torch.equal(a, b)):
@@ -1153,13 +1186,137 @@ def split_batches(dtabs, dev, torch) -> dict:
                 mesh, *pair, dtabs_for(params, "fast"), params), torch)
         unsplit_ms = call_ms(lambda: call_batch(*on_card, dtabs, params),
                              torch)
+        names = ", ".join(str(d) for d in mesh)
         print(f"  B={B} D={D} {'raw lanes' if raw else 'full u32'}: split "
-              f"over [{dev}, {dev}] equal to the unsplit call in every "
+              f"over [{names}] equal to the unsplit call in every "
               f"field, {int(whole.emit.sum())} emitted; per call: split "
               f"from the host {times['host']:.3f} ms, split on the card "
               f"{times['card']:.3f} ms, unsplit on the card "
               f"{unsplit_ms:.3f} ms", flush=True)
     dryrun_multichip(torch.cuda.device_count())
+    return total
+
+
+def whole_batch(graphs, stacked, meta, dtabs, params, dev, spec):
+    """One batch through its key's captured step, whole: the runner's
+    unsplit route (``graphed_split`` over one device, one part)."""
+    from somatic_sniper_tpu_torch.parallel.sharding import graphed_split
+
+    return graphed_split(graphs, [dev], stacked, meta, lambda _: dtabs,
+                         params, spec)
+
+
+def graphed_split_against_unsplit(dev, torch, mesh=None) -> dict:
+    """Phase 12, the captured split: ``parallel.sharding.graphed_split``
+    over ``mesh`` (``[cuda:0, cuda:0]`` by default; one captured step a
+    part, keyed by the part's index) at (8192, 48) raw lanes (the slab
+    step) and (65536, 40) full u32 (the fast batch step), in a registry
+    of its own, three
+    input sets a shape: its count and rows byte-equal to the unsplit
+    captured step's and to the eager split's (``sharded_call_batch``
+    compacted on the first device); its ms on the stream and the host's
+    ms to queue it (pinned uploads, two replays, the merge) beside the
+    unsplit step's (pinned upload, one replay) and the eager split's;
+    each part's capture ms and the pool's MiB.  Returns the launches of
+    the graphed split calls."""
+    import numpy as np
+
+    from somatic_sniper_tpu_torch.models.somatic import (
+        compact_rows, packed_column_batches, stacked_column_batches)
+    from somatic_sniper_tpu_torch.models.step_graph import (SLAB,
+                                                            SlabStepGraph,
+                                                            StepSpec)
+    from somatic_sniper_tpu_torch.models.tables import (ModelParams,
+                                                        build_tables,
+                                                        device_tables)
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+    from somatic_sniper_tpu_torch.parallel.sharding import (
+        graphed_split, sharded_call_batch)
+    from somatic_sniper_tpu_torch.runner import MAX_EMIT, dtabs_for
+
+    params = ModelParams()
+    dtabs = device_tables(build_tables(params), dev)
+    dtabs_of = dtabs_for(params, "fast")
+    mesh = mesh or [dev, dev]
+    n_parts = len(mesh)
+    graphs = SlabStepGraph()
+    total = {}
+    for B, D, slab in ((8192, 48, True), (65536, 40, False)):
+        spec = SLAB if slab else StepSpec(False, "fast", min(MAX_EMIT, B))
+        K = B if slab else spec.max_emit
+        name = "glfgen32" if slab else "glfgen"
+        known = set(graphs.captures())
+        routes = []
+        for seed in (1, 2, 3):
+            if slab:
+                stacked, meta = random_packed_slab(B, D, seed)
+                stacked = stacked.view(np.int32)
+                host = packed_column_batches(torch.from_numpy(stacked),
+                                             torch.from_numpy(meta))
+            else:
+                stacked, meta = batch_upload(B, D, seed, False)
+                host = stacked_column_batches(torch.from_numpy(stacked),
+                                              torch.from_numpy(meta), False)
+            if slab:
+                n_u, rows_u = graphs.run(stacked, meta, dtabs, params, dev)
+            else:
+                _, whole = whole_batch(graphs, stacked, meta, dtabs, params,
+                                       dev, spec)
+                n_u = int(whole.count)
+                rows_u = whole.rows[:n_u].cpu().numpy()
+            eager = compact_rows(sharded_call_batch(mesh, *host, dtabs_of,
+                                                    params), K)
+            gk.reset_launches()
+            route, res = graphed_split(graphs, mesh, stacked, meta, dtabs_of,
+                                       params, spec)
+            launches = dict(gk.LAUNCHES)
+            routes.append(route)
+            n = int(res.count)
+            rows = res.rows.cpu().numpy()
+            if (n != n_u or n != int(eager.count) or n == 0
+                    or rows[:n].tobytes() != rows_u.tobytes()
+                    or rows.tobytes() != eager.rows.cpu().numpy().tobytes()
+                    or int(res.err) != 0):
+                raise AssertionError(
+                    f"the graphed split differs at {(B, D)}, set {seed}: "
+                    f"{n} rows against {n_u} unsplit, {int(eager.count)} "
+                    "eager split")
+            if (launches[name] != 2 * n_parts
+                    or sum(launches.values()) != 2 * n_parts):
+                raise AssertionError(f"{n_parts} parts of two samples "
+                                     f"launched {launches}")
+            total[name] = total.get(name, 0) + 2 * n_parts
+        want = ["capture", "replay", "replay"] if slab else \
+            ["first", "capture", "replay"]
+        if routes != want:
+            raise AssertionError(f"graphed split routes {routes}")
+        split_ms, split_q = step_times(lambda: graphed_split(
+            graphs, mesh, stacked, meta, dtabs_of, params, spec), torch)
+        step = graphs.step(B, D, dtabs, params, dev, spec)
+
+        def unsplit():
+            step.upload(stacked, meta)
+            step.replay()
+
+        unsplit_ms, unsplit_q = step_times(unsplit, torch)
+        eager_ms, eager_q = step_times(lambda: compact_rows(
+            sharded_call_batch(mesh, *host, dtabs_of, params), K), torch)
+        caps = {k[6]: v for k, v in graphs.captures().items()
+                if k not in known and k[6] is not None}
+        what = "raw lanes (slab step)" if slab else "full u32 (batch step)"
+        names = ", ".join(str(d) for d in mesh)
+        pools = ", ".join(f"{d}: {graphs.pool_bytes(d) / 2**20:.1f}"
+                          for d in dict.fromkeys(mesh))
+        print(f"  B={B} D={D} {what}: graphed split over [{names}] "
+              f"byte-equal to the unsplit graphed step and to the eager "
+              f"split on three sets ({n} rows of the last), routes "
+              f"{routes}, {name} {2 * n_parts} a call; per call: graphed "
+              f"split {split_ms:.3f} ms (queued in {split_q:.3f}), unsplit "
+              f"graphed {unsplit_ms:.3f} ms (queued in {unsplit_q:.3f}), "
+              f"eager split {eager_ms:.3f} ms (queued in {eager_q:.3f}); "
+              f"part captures " + ", ".join(
+                  f"{i}: {1e3 * v:.1f} ms" for i, v in sorted(caps.items()))
+              + f"; pool MiB {pools}", flush=True)
     return total
 
 
@@ -1175,6 +1332,8 @@ def step_diff(got, want, torch) -> dict:
     another; raises on any difference outside the fast contract."""
     hist = {}
     for name, a, b in zip(got._fields, got, want):
+        if a is None and b is None:  # dqstats of other lanes, error word
+            continue
         diff = (a.to(torch.int64) - b.to(torch.int64)).flatten()
         for d in diff[diff != 0].tolist():
             hist[f"{name}{d:+d}"] = hist.get(f"{name}{d:+d}", 0) + 1
@@ -1415,8 +1574,8 @@ def graphed_batches_against_eager(keys, dev, torch) -> None:
                           dict(gk.LAUNCHES)))
         for i, want in ((0, "first"), (0, "capture"), (1, "replay")):
             gk.reset_launches()
-            route, res = graphs.run_batch(*sets[i], dtabs, params, dev,
-                                          spec)
+            route, res = whole_batch(graphs, *sets[i], dtabs, params, dev,
+                                     spec)
             n = int(res.count)
             got = (n, res.rows[:n].cpu().numpy().tobytes(),
                    dict(gk.LAUNCHES))
@@ -1442,6 +1601,63 @@ def graphed_batches_against_eager(keys, dev, torch) -> None:
     print(f"  {len(graphs.captures())} captured batch steps, their pool "
           f"{graphs.pool_bytes(dev) / 2**20:.1f} MiB; phase 18 took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def deep_error_word(dev, torch) -> None:
+    """Phase 18, the error word of a fast batch deeper than 255: three
+    batches of one (4096, 300) key through ``runner.submit_call_batch``
+    (first eager, then captured, then replayed) with a device tensor
+    added to the rescaled class counts, set outside the tables before
+    the replay: the replay sets its error word, nothing raises at
+    submit, and ``collect_pending`` raises the stand-alone
+    ``assembly10``'s ValueError."""
+    import numpy as np
+
+    from somatic_sniper_tpu_torch import runner
+    from somatic_sniper_tpu_torch.models import glfgen as mg
+    from somatic_sniper_tpu_torch.models import step_graph as sg
+    from somatic_sniper_tpu_torch.models.tables import (ModelParams,
+                                                        build_tables,
+                                                        device_tables)
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+    from somatic_sniper_tpu_torch.pileup.columnize import PairedBatch
+
+    dtabs = device_tables(build_tables(ModelParams()), dev)
+    bad = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    saved, real = sg.STEP_GRAPHS, mg.rescale_counts
+    sg.STEP_GRAPHS = sg.SlabStepGraph()
+    mg.rescale_counts = lambda c: real(c) + bad
+    try:
+        pending = []
+        for seed in (1, 2, 3):
+            stacked, meta = batch_upload(4096, 300, seed, False)
+            batch = PairedBatch(
+                keys=np.arange(4096, dtype=np.int64), ref16=meta[2],
+                tumor=stacked[0], normal=stacked[1], n_tumor=meta[0],
+                n_normal=meta[1])
+            if seed == 3:
+                bad[0, 1] = 1000
+            pending.append((batch, meta[2], runner.submit_call_batch(
+                batch, meta[2], dtabs, dev)))
+        errs = [int(p[2].err) for p in pending]
+        if errs != [0, 0, 1] or len(sg.STEP_GRAPHS.captures()) != 1:
+            raise AssertionError(f"error words {errs}, captures "
+                                 f"{len(sg.STEP_GRAPHS.captures())}")
+        try:
+            runner.collect_pending(pending, None, None, None, dtabs, dev)
+        except ValueError as e:
+            if str(e) != gk._count_error(256):
+                raise
+            message = str(e)
+        else:
+            raise AssertionError("an out-of-table count passed collect")
+    finally:
+        sg.STEP_GRAPHS, mg.rescale_counts = saved, real
+    torch.cuda.synchronize()
+    print(f"  fast (4096, 300): a count pushed outside the tables before "
+          f"the key's replay set its error word (words {errs}), no submit "
+          f"raised, collect_pending raised ValueError: {message}",
+          flush=True)
 
 
 def entry_on_card(torch) -> None:
@@ -1545,6 +1761,173 @@ def records_and_prefilter(pair: Path, out_dir: Path, fast_lines: list[str],
           f"{slabs} at depth {depths}, glfgen32 launches "
           f"{launches['glfgen32']}", flush=True)
     return launches
+
+
+def prefilter_off_once(pair: Path, out: Path, dev, mesh):
+    """The 10 Mb pair through ``call_pair_windows(prefilter=False)``,
+    fast on the card, into ``out``: every slab split over ``mesh`` (a
+    list of devices), or with ``mesh`` None whole on ``dev``
+    (``SNIPER_NO_MESH``), counters from zero.  Returns (its body lines,
+    wall s, the STATS snapshot, the launches)."""
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+    from somatic_sniper_tpu_torch.output.formatters import get_formatter
+    from somatic_sniper_tpu_torch.output.records import HeaderData
+    from somatic_sniper_tpu_torch.parallel.sharded import call_pair_windows
+    from somatic_sniper_tpu_torch.runner import forced_mesh
+    from somatic_sniper_tpu_torch.utils.stats import STATS
+
+    args = (str(pair / "tumor.bam"), str(pair / "normal.bam"),
+            str(pair / "ref.fa"))
+    saved = os.environ.pop("SNIPER_NO_MESH", None)
+    if mesh is None:
+        os.environ["SNIPER_NO_MESH"] = "1"
+    try:
+        with forced_mesh(mesh):
+            STATS.reset()
+            gk.reset_launches()
+            t0 = time.perf_counter()
+            with open(out, "w") as fh:
+                get_formatter("vcf")[0](fh, HeaderData(
+                    refseq=args[2], normal_sample_id="NORMAL",
+                    tumor_sample_id="TUMOR"))
+                for _wi, _win, recs in call_pair_windows(
+                        *args, precision="fast", device=dev, fmt="vcf",
+                        prefilter=False):
+                    fh.writelines(recs)
+            wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("SNIPER_NO_MESH", None)
+        if saved is not None:
+            os.environ["SNIPER_NO_MESH"] = saved
+    return body_lines(out), wall, STATS.snapshot(), dict(gk.LAUNCHES)
+
+
+def split_prefilter_off(pair: Path, out_dir: Path, fast_lines: list[str],
+                        n_cols: int, dev, mesh=None) -> dict:
+    """Phase 19: phase 15's ``prefilter=False`` run (every column of the
+    10 Mb pair on the card) under ``forced_mesh(mesh)``, by default
+    ``[cuda:0, cuda:0]``: every slab split in one part a device, each
+    replayed from its own captured step; bytes equal to ``fast_lines``
+    (phase 4's fast output, so its sha256 is phase 15's); ``slabs_split``
+    = ``slabs_graphed`` = ``slabs_dispatched``, glfgen32 twice a part a
+    slab, no batch route; wall, cols/s and the graph pools.  Returns
+    (the launches, wall s)."""
+    from somatic_sniper_tpu_torch.models.step_graph import STEP_GRAPHS
+    from somatic_sniper_tpu_torch.utils.stats import STATS
+
+    mesh = mesh or [dev, dev]
+    names = ", ".join(str(d) for d in mesh)
+    lines, wall, stats, launches = prefilter_off_once(
+        pair, out_dir / f"windows_prefilter_split_{len(mesh)}.vcf", dev, mesh)
+    if lines != fast_lines:
+        first = next((i for i, (a, b) in enumerate(zip(lines, fast_lines))
+                      if a != b), min(len(lines), len(fast_lines)))
+        raise AssertionError(
+            f"prefilter=False split over [{names}]: {len(lines)} "
+            f"lines against the unsplit {len(fast_lines)}, the first "
+            f"difference at line {first}: "
+            f"{lines[first:first + 1]} against "
+            f"{fast_lines[first:first + 1]}")
+    print_digest(lines)
+    slabs = int(stats.get("slabs_dispatched", 0))
+    counts = {k: int(stats.get(k, 0)) for k in
+              ("slabs_dispatched", "slabs_split", "slabs_graphed",
+               "slabs_unsplit")}
+    batch_routes = {k: v for k, v in stats.items()
+                    if k.startswith(("batches_", "batch_captures"))}
+    if (slabs == 0 or counts["slabs_split"] != slabs
+            or counts["slabs_graphed"] != slabs or counts["slabs_unsplit"]
+            or launches["glfgen32"] != 2 * len(mesh) * slabs or batch_routes
+            or any(stats.get(k) for k in RETIRED_ROUTES)):
+        raise AssertionError(f"split prefilter=False: {counts}, launches "
+                             f"{launches}, batch routes {batch_routes}")
+    print("  stage times of the split prefilter=False run:\n"
+          + STATS.summary(), flush=True)
+    pools = ", ".join(f"{d}: {STEP_GRAPHS.pool_bytes(d) / 2**20:.1f}"
+                      for d in dict.fromkeys(mesh))
+    print(f"  prefilter=False over [{names}]: wall {wall:.3f} s "
+          f"({n_cols / wall:.0f} cols/s), bytes equal to the unsplit "
+          f"output; {counts}; glfgen32 {launches['glfgen32']}; device "
+          f"columns {int(stats.get('device_columns', 0))}; graph pool MiB "
+          f"{pools}", flush=True)
+    return launches, wall
+
+
+def cards() -> int:
+    """``python3 chip_smoke.py --cards``, on a machine with two cards or
+    more: the split over distinct cards, which the one-card smoke runs
+    only as ``[cuda:0, cuda:0]``.  Phase 12's eager split and dry run
+    over every card, and its captured split over
+    ``[cuda:0, cuda:1]`` and over every card, held byte for byte to the
+    unsplit graphed step and the eager split; then the 10 Mb pair with
+    ``prefilter=False`` whole on cuda:0 (``SNIPER_NO_MESH``), split over
+    two cards and over every card (the default ``data_mesh``), twice
+    in turn, each split run's bytes equal to the whole run's, with the
+    wall and cols/s of each.  Ends with the same last line as the
+    smoke."""
+    import torch
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        print(f"chip_smoke --cards: {n} CUDA device(s), two or more "
+              "needed", file=sys.stderr)
+        return 2
+    from somatic_sniper_tpu_torch.device import resolve_device
+    from somatic_sniper_tpu_torch.io import native
+    from somatic_sniper_tpu_torch.models.tables import (ModelParams,
+                                                        build_tables,
+                                                        device_tables)
+    from somatic_sniper_tpu_torch.ops import build
+
+    t_start = time.perf_counter()
+    phase("1 cards")
+    card = card_line()
+    print(card, flush=True)
+    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {n} "
+          f"device(s); peer access 0<->1: "
+          f"{torch.cuda.can_device_access_peer(0, 1)}", flush=True)
+    dev = resolve_device("cuda")
+    phase("2 build")
+    if native.get_lib() is None:
+        raise AssertionError("the port's native host library did not build")
+    build.build()
+    build.load_library()
+    meshes = [[torch.device("cuda", i) for i in range(k)]
+              for k in sorted({2, n})]
+    phase("12 the split over distinct cards, and the dry run")
+    for mesh in meshes:
+        split_batches(device_tables(build_tables(ModelParams()), dev), dev,
+                      torch, mesh)
+        graphed_split_against_unsplit(dev, torch, mesh)
+    phase("19 prefilter=False: 10 Mb pair, whole and split over cards")
+    pair, n_cols = ensure_sim("pair_10mb", SIM, index=True)
+    out_dir = DATA / "out"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    walls = {}
+    for turn in (1, 2):
+        lines, wall, stats, launches = prefilter_off_once(
+            pair, out_dir / "windows_prefilter_whole.vcf", dev, None)
+        if (int(stats.get("slabs_split", 0))
+                or launches["glfgen32"] != 2 * int(stats["slabs_dispatched"])):
+            raise AssertionError(f"the whole run split: {stats}")
+        if turn == 1:
+            print_digest(lines)
+        print(f"  turn {turn}, whole on {dev}: wall {wall:.3f} s "
+              f"({n_cols / wall:.0f} cols/s)", flush=True)
+        walls.setdefault("whole", []).append(wall)
+        for mesh in meshes:
+            _, wall = split_prefilter_off(pair, out_dir, lines, n_cols, dev,
+                                          mesh)
+            walls.setdefault(f"split_{len(mesh)}", []).append(wall)
+    print(f"  {card}: prefilter=False walls (s, two turns each) "
+          f"{json.dumps(walls)}; {n_cols} columns", flush=True)
+    print(f"  --cards wall {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": n}}), flush=True)
+    return 0
 
 
 NO_TORCH_CHILD = """\
@@ -1795,6 +2178,7 @@ def main() -> int:
 
     phase("12 the batch split over devices, and the dry run")
     launches_split = split_batches(dtabs, dev, torch)
+    launches_split_graphed = graphed_split_against_unsplit(dev, torch)
 
     phase("13 bench_kernel: the scoring step on the card")
     bench_kernel_on_card(dev, torch)
@@ -1813,9 +2197,16 @@ def main() -> int:
     graphed_against_eager(dev, torch)
 
     phase("18 the captured batch step against the eager step")
+    # and a fast key deeper than 255, which no phase's data reaches
     graphed_batches_against_eager(
         {key for st in (stats_u32, stats_u16, stats_exact)
-         for key in batch_keys(st)}, dev, torch)
+         for key in batch_keys(st)} | {("u32", "fast", 4096, 300)},
+        dev, torch)
+    deep_error_word(dev, torch)
+
+    phase("19 prefilter=False split over [cuda:0, cuda:0]: 10 Mb pair")
+    launches_nopf_split, _ = split_prefilter_off(pair, out_dir, fast_lines,
+                                                 n_cols, dev)
 
     # each kernel's launches from the phase that ran it, its times at
     # the main shape of its path (phase 8)
@@ -1867,6 +2258,9 @@ def main() -> int:
                              for n, v in launches_jobs.items()},
                           "collective_2": launches_coll,
                           "split_2_streams": launches_split,
+                          "split_2_graphed": launches_split_graphed,
+                          "windows_prefilter_off_split": {
+                              "glfgen32": launches_nopf_split["glfgen32"]},
                           "windows_prefilter_off": {
                               "glfgen32": launches_nopf["glfgen32"]}}}),
           flush=True)
@@ -1877,4 +2271,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--cards"]:
+        sys.exit(cards())
+    if sys.argv[1:]:
+        sys.exit("usage: python3 chip_smoke.py [--cards]")
     sys.exit(main())

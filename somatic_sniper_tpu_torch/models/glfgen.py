@@ -14,7 +14,9 @@ the batch's slot encoding, and to depth 255 the two steps are one launch:
 
 Batches deeper than 255 take the accumulate alone, rescale their class
 counts (reference sniper_maqcns.c:178-182) and run ``assembly10`` with
-the full tables.
+the full tables; its error word (a count outside the tables) is left on
+the device in ``GlfResult.err`` for the caller to read with the step's
+results, so the step never waits.
 
 Exact precision (:105-198, :441-451, :579-756 with ``acc_f`` float64)
 replicates the reference's mixed float/double arithmetic bit for bit in
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from ..ops.glfgen_kernels import (MAX_D, accumulate, accumulate16,
-                                  accumulate32, assembly10, glfgen16,
+                                  accumulate32, assembly10_flagged, glfgen16,
                                   glfgen32, glfgen_u32)
 from .tables import DeviceTables
 
@@ -105,6 +107,9 @@ class GlfResult(NamedTuple):
     min_lk: torch.Tensor    # [B] int32
     depth: torch.Tensor     # [B] int32, non-deleted read count
     rms_mapq: torch.Tensor  # [B] int32
+    # i32[1], non-zero when a count fell outside the assembly tables;
+    # None where none can (the fused kernels, exact precision)
+    err: torch.Tensor | None = None
 
 
 def rescale_counts(c: torch.Tensor) -> torch.Tensor:
@@ -122,7 +127,13 @@ def glfgen_batch(cols: ColumnBatch, dtabs: DeviceTables,
     """Batched sniper_maqcns_glfgen (reference sniper_maqcns.c:127-248):
     f32 over any of the three encodings ("fast"), or the reference's own
     arithmetic over full u32 slot words ("exact").  ``dtabs`` must hold
-    the tables of that precision."""
+    the tables of that precision.
+
+    A fast batch deeper than 255 whose rescaled class counts fall
+    outside the assembly tables does not raise here: those columns get
+    zero likelihoods and ``err`` is set, and the caller must read it
+    (``runner.collect_pending`` raises the stand-alone ``assembly10``'s
+    ValueError on it), so that a captured step never waits."""
     if dtabs.precision != precision:
         raise ValueError(f"{precision} glfgen given {dtabs.precision} tables")
     if precision == "exact":
@@ -133,6 +144,7 @@ def glfgen_batch(cols: ColumnBatch, dtabs: DeviceTables,
     coef_sub, lhet_sub = dtabs.assembly_tables(D)
     if D <= MAX_D:
         # c_tot <= D <= 255: no rescale, and one launch does both steps
+        err = None
         if enc == "raw32":
             lk, min_lk, rms = glfgen32(cols.slots, cols.n_keep, cols.ref16,
                                        w, coef_sub, lhet_sub, cap_mapq)
@@ -156,15 +168,17 @@ def glfgen_batch(cols: ColumnBatch, dtabs: DeviceTables,
         else:
             esum, fsum, c, rms, n = accumulate(cols.slots, cols.depth,
                                                cols.ref16, w, cap_mapq)
-        lk, min_lk = assembly10(esum, fsum, rescale_counts(c), n, coef_sub,
-                                lhet_sub)
+        # the error word stays on the device: the caller reads it with
+        # the step's results
+        lk, min_lk, err = assembly10_flagged(esum, fsum, rescale_counts(c),
+                                             n, coef_sub, lhet_sub)
     # rms mapQ (reference sniper_maqcns.c:176)
     rms_mapq = torch.floor(
         torch.sqrt(rms.to(F32) / n.clamp(min=1).to(F32)) + 0.499
     ).to(I32)
     rms_mapq = torch.where(n > 0, rms_mapq, 0)
     return GlfResult(lk=lk, min_lk=min_lk, depth=n.clamp(max=16777215),
-                     rms_mapq=rms_mapq)
+                     rms_mapq=rms_mapq, err=err)
 
 
 # -- exact precision ----------------------------------------------------------

@@ -12,6 +12,7 @@ step after it is integer work and the same in both.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -57,6 +58,9 @@ class CallResult(NamedTuple):
     # [B, 18] int32 dqstats rows; only raw kept-only lanes carry them
     tumor_dq: torch.Tensor | None = None
     normal_dq: torch.Tensor | None = None
+    # [] int32, non-zero when a class count fell outside the assembly
+    # tables (a fast batch deeper than 255); None where none can
+    err: torch.Tensor | None = None
 
 
 class CompactResult(NamedTuple):
@@ -64,12 +68,22 @@ class CompactResult(NamedTuple):
     repeat column 0.  ``rows`` is [K, 1 + 16 (+ 36)] int32: the batch
     index, the COMPACT_FIELDS, then tumor and normal dqstats when the
     lanes carry them, with K = min(max_emit, B).  ``count`` may exceed
-    K, and the caller then refetches the full CallResult.  The JAX
-    package's byte-narrow u8 rows hid a slow device-to-host link, which
-    a card on the host's PCIe does not have."""
+    K, and the caller then refetches the full CallResult.  ``err`` is
+    the CallResult's error word, the device's constant 0 where it has
+    none: the caller reads it with ``count`` and raises if it is set.
+    The JAX package's byte-narrow u8 rows hid a slow device-to-host
+    link, which a card on the host's PCIe does not have."""
 
     count: torch.Tensor  # [] int32
     rows: torch.Tensor
+    err: torch.Tensor  # [] int32
+
+
+@functools.lru_cache(maxsize=None)
+def _no_error(device: torch.device) -> torch.Tensor:
+    """The error word of a step that has none: a 0 made once a device,
+    so that a warm step makes no tensor (models/consensus._consts)."""
+    return torch.zeros((), dtype=I32, device=device)
 
 
 def _mean_499(s, o):
@@ -131,7 +145,10 @@ def call_batch(tumor: ColumnBatch, normal: ColumnBatch, dtabs: DeviceTables,
     """Batched glf_somatic (reference somatic_sniper.c:109-273), with
     the dqstats rows of both samples when the lanes are raw kept-only
     words (the other encodings cannot give them, somatic.py:239-252).
-    ``dtabs`` holds the tables of ``precision``."""
+    ``dtabs`` holds the tables of ``precision``.  A set ``err`` (a fast
+    batch deeper than 255 with a count outside the tables,
+    ``glfgen_batch``) means the result is not to be used: the caller
+    reads it and raises, as ``runner.collect_pending`` does."""
     p = params
     g_t = glfgen_batch(tumor, dtabs, p.cap_mapq, precision)
     g_n = glfgen_batch(normal, dtabs, p.cap_mapq, precision)
@@ -178,6 +195,7 @@ def call_batch(tumor: ColumnBatch, normal: ColumnBatch, dtabs: DeviceTables,
     ).to(I32)
     n_status = torch.where(n_b1 == rb4, WILDTYPE, GERMLINE).to(I32)
 
+    err = None if g_t.err is None else torch.maximum(g_t.err, g_n.err)[0]
     dq_t = dq_n = None
     if tumor.encoding == "raw32":
         wanted = rb4 | tumor_eff | normal_eff
@@ -191,7 +209,7 @@ def call_batch(tumor: ColumnBatch, normal: ColumnBatch, dtabs: DeviceTables,
         joint_cnsq=score.joint_consensus_quality, tumor_status=t_status,
         normal_status=n_status, tumor_eff_gt=tumor_eff,
         normal_eff_gt=normal_eff, tumor_depth=g_t.depth,
-        normal_depth=g_n.depth, tumor_dq=dq_t, normal_dq=dq_n,
+        normal_depth=g_n.depth, tumor_dq=dq_t, normal_dq=dq_n, err=err,
     )
 
 
@@ -228,7 +246,47 @@ def compact_rows(res: CallResult, max_emit: int) -> CompactResult:
     dq = ([res.tumor_dq[idx].long(), res.normal_dq[idx].long()]
           if res.tumor_dq is not None else [])
     rows = torch.cat([idx[:, None], fields[idx].long(), *dq], dim=1).to(I32)
-    return CompactResult(count=emit_i.sum(dtype=I32), rows=rows)
+    err = _no_error(dev) if res.err is None else res.err
+    return CompactResult(count=emit_i.sum(dtype=I32), rows=rows, err=err)
+
+
+def merge_compact(parts: list[CompactResult], part_b: int,
+                  max_emit: int) -> CompactResult:
+    """The compaction of a whole batch from the compactions of its
+    parts, part i holding columns [i * part_b, (i + 1) * part_b) and
+    each part's rows its local column index: the rows of
+    ``compact_rows`` over the whole batch, byte for byte.
+
+    All parts lie on one device and have one shape (Kp rows, Kp =
+    min(max_emit, part_b)).  Row j of the whole is the j-th emitted
+    column, taken from part i's first emitted rows at offset sum(count
+    of the parts before i), its index shifted by the part's first
+    column; rows past ``count`` repeat column 0, whose row part 0 holds
+    at its row 0 (column 0 emitted, or none emitted) or else at its last
+    row (a part that emitted fewer than Kp columns pads with it; one that
+    emitted Kp or more leaves no row of the whole to pad).  A part that
+    overflowed its Kp rows lost only rows past the whole's K = min(
+    max_emit, n * part_b): its Kp >= K then.  Nothing waits on the
+    device."""
+    n = len(parts)
+    first = parts[0].rows
+    dev = first.device
+    Kp, F = first.shape
+    K = min(max_emit, n * part_b)
+    counts = torch.stack([p.count for p in parts])
+    offsets = torch.cumsum(counts, dim=0, dtype=I32) - counts
+    r = torch.arange(n * Kp, device=dev)
+    part, j = r // Kp, r % Kp
+    dest = offsets[part] + j
+    dest = torch.where((j < counts[part]) & (dest < K), dest, K).long()
+    rows = torch.cat([p.rows for p in parts])
+    rows[:, 0] += (part * part_b).to(I32)
+    pad = torch.where(first[0, 0] == 0, first[0], first[Kp - 1])
+    # every row not written is column 0's; the dropped rows land in K
+    out = pad.expand(K + 1, F).contiguous()
+    out.index_copy_(0, dest, rows)
+    return CompactResult(count=counts.sum(dtype=I32), rows=out[:K],
+                         err=torch.stack([p.err for p in parts]).amax())
 
 
 def packed_column_batches(stacked, meta) -> tuple[ColumnBatch, ColumnBatch]:
@@ -301,7 +359,8 @@ def call_batch_stacked(stacked, meta, dtabs: DeviceTables,
     """call_batch(_compact) over the batch path's upload layout
     (somatic.py:482-538; layout of stacked_column_batches).  Returns the
     CompactResult (K = min(max_emit, B)) when ``compact``, else the full
-    CallResult.  Exact precision reads full slot words only."""
+    CallResult.  Exact precision reads full slot words only.  Either
+    result's ``err`` must be read, as ``call_batch`` says."""
     cb_t, cb_n = stacked_column_batches(stacked, meta, packed16)
     if compact:
         return call_batch_compact(cb_t, cb_n, dtabs, params,

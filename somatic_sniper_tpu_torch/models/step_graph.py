@@ -17,30 +17,35 @@ the rows are the eager step's bytes.  A ``StepSpec`` names the step:
   (``packed16``), or int32 slot words and metadata [3, B].
 
 A graph reads and writes fixed addresses.  Each key (device, B, D,
-ModelParams, DeviceTables, StepSpec) owns static inputs of the spec's
-dtype and shape, pinned host buffers beside them, and the ``count`` /
-``rows`` its capture allocated.  Every capture draws on one memory pool,
-so a capture reuses the blocks an earlier one freed (an exact key at
-(65536, 40) frees ~900 MiB of f64 terms and ranks); the keys then share
-those blocks, so no two replays may overlap on the device and each
-replay's outputs are copied out before the next replay starts: a replay
-waits on an event of the device's last replay, whatever stream it is
-queued on, and the slab step copies its rows to pinned memory, the
-batch step to tensors of its own on the same stream.
+ModelParams, DeviceTables, StepSpec, part) owns static inputs of the
+spec's dtype and shape, pinned host buffers beside them, and the
+``count`` / ``rows`` / ``err`` its capture allocated; ``part`` is the
+index of one part of a slab or batch split over several devices
+(``run_parts``, the counterpart of the JAX package's step jitted over a
+mesh), so that two parts of one shape on one device keep their own.
+Every capture on a device draws on that device's one graph pool, so a
+capture reuses the blocks an earlier one freed (an exact key at (65536,
+40) frees ~900 MiB of f64 terms and ranks); the keys then share those
+blocks, so no two replays may overlap on the device and each replay's
+outputs are copied out before the next replay starts: a replay waits on
+an event of the device's last replay, whatever stream it is queued on,
+and the slab step copies its rows to pinned memory, the batch step and
+a part to tensors of their own on the same stream.  Replays on
+different devices do not wait on each other.
 
 When a key captures:
 
 * a slab's at its first slab, after ``WARMUP_STEPS`` eager steps on the
   capture stream: the slab path runs a few shapes (B = 8192, a depth
   bucket each) many times over;
-* a batch's at its second batch (``run_batch``): the first runs eagerly,
-  the third and later replay.  A batch's B is a bucket and its D a
-  depth bucket, so a run meets ten keys or so, and each depth bucket
-  ends in a one-off tail; a capture costs tens of ms, more than a tail
-  saves by it.  The first eager batch is the key's warm-up (it cuts the
-  assembly tables of its depth and loads the kernels of its shape,
-  neither of which a capture may do), so the capture runs no warm-up
-  step of its own.
+* a batch's at its second batch (``run_parts``, whole or split into
+  parts): the first runs eagerly, the third and later replay.  A
+  batch's B is a bucket and its D a depth bucket, so a run meets ten
+  keys or so, and each depth bucket ends in a one-off tail; a capture
+  costs tens of ms, more than a tail saves by it.  The first eager
+  batch is the key's warm-up (it cuts the assembly tables of its depth
+  and loads the kernels of its shape, neither of which a capture may
+  do), so the capture runs no warm-up step of its own.
 
 ``ops.glfgen_kernels.LAUNCHES`` is counted by the wrappers, in Python,
 and a replay runs no wrapper.  The warm-up steps and the capture are
@@ -164,7 +169,7 @@ class CapturedStep:
             K.LAUNCHES.update(before)  # no replay's launches: left out
         if stream is not None:
             caller.wait_stream(stream)
-        self.count, self.rows = out.count, out.rows
+        self.count, self.rows, self.err = out.count, out.rows, out.err
         self._count_h = torch.empty(self.count.shape, dtype=torch.int32,
                                     pin_memory=pin)
         self._rows_h = torch.empty(self.rows.shape, dtype=torch.int32,
@@ -215,14 +220,23 @@ def _on(stream):
             else contextlib.nullcontext())
 
 
+def _device(device: torch.device):
+    """``device`` current inside the block, where it is a card."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
 class SlabStepGraph:
     """The captured scoring steps of a process, slab and batch, one a
-    key (device, B, D, ModelParams, DeviceTables, StepSpec).
+    key (device, B, D, ModelParams, DeviceTables, StepSpec, part); the
+    part is the index of a part of a batch or slab split over several
+    devices (``run_parts``), None for a whole one.
 
     ``capture`` turns a step into (its outputs, a replay); on a card it
     is ``cuda_graph_capture``, and ``device_types`` are the devices it
-    captures on.  A capture or a replay that fails raises: nothing runs
-    the eager step in its place."""
+    captures on.  Each device has its own graph pool and capture stream.
+    A capture or a replay that fails raises: nothing runs the eager step
+    in its place."""
 
     def __init__(self, capture=cuda_graph_capture,
                  device_types: tuple[str, ...] = ("cuda",)):
@@ -231,7 +245,7 @@ class SlabStepGraph:
         self._steps: dict[tuple, CapturedStep] = {}
         self._seen: set[tuple] = set()  # batch keys that ran eagerly once
         self._lock = threading.RLock()
-        self._pool = None
+        self._pools: dict[torch.device, object] = {}
         self._streams: dict[torch.device, object] = {}
         self._last_replay: dict[torch.device, object] = {}
 
@@ -240,23 +254,29 @@ class SlabStepGraph:
 
     @staticmethod
     def key(device, B: int, D: int, params: ModelParams,
-            dtabs: DeviceTables, spec: StepSpec = SLAB) -> tuple:
-        return (torch.device(device), B, D, params, id(dtabs), spec)
+            dtabs: DeviceTables, spec: StepSpec = SLAB,
+            part: int | None = None) -> tuple:
+        return (torch.device(device), B, D, params, id(dtabs), spec, part)
 
     def step(self, B: int, D: int, dtabs: DeviceTables, params: ModelParams,
              device, spec: StepSpec = SLAB,
-             warmup_steps: int = WARMUP_STEPS) -> CapturedStep:
-        """The captured step of this key, captured now if it is new."""
+             warmup_steps: int = WARMUP_STEPS,
+             part: int | None = None) -> CapturedStep:
+        """The captured step of this key, captured now if it is new, with
+        the key's device current, on its capture stream, into its pool."""
         device = torch.device(device)
-        key = self.key(device, B, D, params, dtabs, spec)
+        key = self.key(device, B, D, params, dtabs, spec, part)
         with self._lock:
             step = self._steps.get(key)
             if step is None:
-                if device.type == "cuda" and self._pool is None:
-                    self._pool = torch.cuda.graph_pool_handle()
-                step = CapturedStep(B, D, dtabs, params, device, spec,
-                                    self._capture, self._pool,
-                                    self._stream(device), warmup_steps)
+                pool = None
+                if device.type == "cuda":
+                    pool = self._pools.setdefault(
+                        device, torch.cuda.graph_pool_handle())
+                with _device(device):
+                    step = CapturedStep(B, D, dtabs, params, device, spec,
+                                        self._capture, pool,
+                                        self._stream(device), warmup_steps)
                 self._steps[key] = step
             return step
 
@@ -302,44 +322,116 @@ class SlabStepGraph:
             self._replayed(step)
             return out
 
-    def run_batch(self, stacked_h: np.ndarray, meta_h: np.ndarray,
-                  dtabs: DeviceTables, params: ModelParams, device,
-                  spec: StepSpec) -> tuple[str, CompactResult]:
-        """One host batch (already padded to its bucket) through its
-        key's step on the current stream, without a wait.  Returns the
-        route and the batch's own CompactResult on the device: "first"
-        (the key's first batch, scored eagerly from a pageable upload),
-        "capture" (the second: captured, then replayed) or "replay".
-        The upload counts in STATS as ``device.upload`` and the step as
-        ``device.score``, as on the eager route; a capture as
-        ``device.capture``."""
-        device = torch.device(device)
-        _, B, D = stacked_h.shape
-        key = self.key(device, B, D, params, dtabs, spec)
+    def run_parts(self, parts, params: ModelParams, spec: StepSpec,
+                  gather) -> tuple[str, list[CompactResult]]:
+        """A batch or slab in one or more parts, each through its own
+        key's step, without a wait: ``parts`` is a list of (device,
+        DeviceTables, stacked_h, meta_h), part i keyed (device, B, D,
+        params, tables, ``spec``, i), so that two parts of one shape on
+        one device keep their own buffers; a whole one (a single part) is
+        keyed with part None.  Each part is uploaded and replayed on its
+        device's capture stream, after that device's last replay; parts
+        on different devices do not wait on each other.  Each part's
+        CompactResult is copied to ``gather`` on its stream (a clone
+        where it lies there already), and the current stream of
+        ``gather`` waits for every part.
+
+        Route: a batch key's first call scores each part eagerly from a
+        pageable upload ("first", the key's warm-up), its second
+        captures every part without a warm-up step ("capture"); a slab's
+        first captures every part after ``WARMUP_STEPS`` eager steps.
+        Later ones replay from pinned staging ("replay").  A part whose
+        capture fails raises, and no part of the call keeps a graph.
+        The uploads count in STATS as ``device.upload``, the steps as
+        ``device.score``, the captures as ``device.capture``.
+
+        Parts on distinct cards (a copy from one card to ``gather``, a
+        stream waiting on another card's, a capture with another card
+        current) are held by chip_smoke.py's ``--cards`` run; the
+        default smoke and the card tests run every part on cuda:0."""
+        gather = torch.device(gather)
+        batch = spec.packed16 is not None
+        keys = [self.key(dev, st.shape[1], st.shape[2], params, dtabs, spec,
+                         None if len(parts) == 1 else i)
+                for i, (dev, dtabs, st, _) in enumerate(parts)]
         with self._lock:
-            if key not in self._steps and key not in self._seen:
-                with STATS.timer("device.upload"):
-                    stacked = torch.from_numpy(stacked_h).to(device)
-                    meta = torch.from_numpy(meta_h).to(device)
-                with STATS.timer("device.score"):
-                    out = spec.score(stacked, meta, dtabs, params)
-                self._seen.add(key)
-                return "first", out
-            route, step = "replay", self._steps.get(key)
-            if step is None:
-                with STATS.timer("device.capture"):
-                    route, step = "capture", self.step(
-                        B, D, dtabs, params, device, spec, warmup_steps=0)
-            with STATS.timer("device.upload"):
-                step.upload(stacked_h, meta_h)
-            with STATS.timer("device.score"):
-                self._replay(step)
-                # the next replay of any key overwrites these: the
-                # batch's own copies, queued on the same stream
-                out = CompactResult(count=step.count.clone(),
-                                    rows=step.rows.clone())
-                self._replayed(step)
-            return route, out
+            if keys[0] in self._steps:
+                route = "replay"
+            elif batch and keys[0] not in self._seen:
+                route = "first"
+            else:
+                route = "capture"
+            streams = [self._stream(dev) for dev, *_ in parts]
+            for (dev, *_), stream in zip(parts, streams):
+                if stream is not None:
+                    # the tables were written on the device's stream
+                    stream.wait_stream(_current_stream(dev))
+            if route == "first":
+                outs = self._parts_eager(parts, params, spec, streams, gather)
+                self._seen.update(keys)
+            else:
+                if route == "capture":
+                    with STATS.timer("device.capture"):
+                        try:
+                            steps = [self.step(
+                                st.shape[1], st.shape[2], dtabs, params, dev,
+                                spec, 0 if batch else WARMUP_STEPS,
+                                part=key[6])
+                                for (dev, dtabs, st, _), key
+                                in zip(parts, keys)]
+                        except BaseException:
+                            for key in keys:
+                                self._steps.pop(key, None)
+                            raise
+                else:
+                    steps = [self._steps[key] for key in keys]
+                outs = self._parts_replayed(parts, steps, streams, gather)
+            cur = _current_stream(gather)
+            if cur is not None:
+                for stream in set(streams) - {None}:
+                    cur.wait_stream(stream)
+                for out in outs:
+                    for t in out:
+                        t.record_stream(cur)
+            return route, outs
+
+    def _parts_eager(self, parts, params, spec, streams, gather):
+        """Each part's eager step on its device's capture stream (its
+        key's warm-up), from a pageable upload."""
+        ups = []
+        with STATS.timer("device.upload"):
+            for (dev, _, st, mt), stream in zip(parts, streams):
+                with _on(stream):
+                    ups.append((torch.from_numpy(np.ascontiguousarray(st))
+                                .to(dev),
+                                torch.from_numpy(np.ascontiguousarray(mt))
+                                .to(dev)))
+        outs = []
+        with STATS.timer("device.score"):
+            for (dev, dtabs, *_), stream, up in zip(parts, streams, ups):
+                with _on(stream):
+                    out = spec.score(*up, dtabs, params)
+                    outs.append(CompactResult(*(t.to(gather) for t in out)))
+        return outs
+
+    def _parts_replayed(self, parts, steps, streams, gather):
+        """Each part's upload and replay on its device's capture stream,
+        its outputs copied to ``gather`` before the device's next
+        replay."""
+        with STATS.timer("device.upload"):
+            for (_, _, st, mt), step, stream in zip(parts, steps, streams):
+                with _on(stream):
+                    step.upload(st, mt)
+        outs = []
+        with STATS.timer("device.score"):
+            for step, stream in zip(steps, streams):
+                with _on(stream):
+                    self._replay(step)
+                    outs.append(CompactResult(*(
+                        t.to(gather, copy=True)
+                        for t in (step.count, step.rows, step.err))))
+                    self._replayed(step)
+        return outs
 
     def captures(self) -> dict[tuple, float]:
         """Seconds each key's warm-up and capture took."""
@@ -347,13 +439,17 @@ class SlabStepGraph:
             return {k: s.capture_s for k, s in self._steps.items()}
 
     def pool_bytes(self, device) -> int:
-        """Device bytes the shared pool holds (0 before a capture)."""
-        if self._pool is None:
+        """Device bytes the device's graph pool holds (0 before its
+        first capture)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        pool = self._pools.get(device)
+        if pool is None:
             return 0
-        index = torch.cuda._get_device_index(device, optional=True)
         return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if s["device"] == index
-                   and tuple(s["segment_pool_id"]) == tuple(self._pool))
+                   if s["device"] == device.index
+                   and tuple(s["segment_pool_id"]) == tuple(pool))
 
 
 # the process's captured steps: like the JAX package's jit cache, they

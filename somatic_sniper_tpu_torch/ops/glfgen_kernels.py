@@ -490,6 +490,24 @@ def assembly10_launch(esum, fsum, c, n, coef_sub, lhet_sub):
     return lk, min_lk, err
 
 
+def assembly10_flagged(esum, fsum, c, n, coef_sub, lhet_sub):
+    """``assembly10`` with its error word left on the device: (lk,
+    min_lk, err), ``err`` an i32[1] that is 1 if any column's counts
+    fell outside the tables (such a column gets zeros), for a caller
+    that reads it with its results (``runner.collect_pending``), since a
+    captured step may not wait.  On the card ``assembly10_launch``; on
+    the CPU the plain version over the columns inside the tables."""
+    if isinstance(esum, torch.Tensor) and esum.device.type == "cpu":
+        _, NK, _ = _check_assembly_inputs(esum, fsum, c, n, coef_sub,
+                                          lhet_sub)
+        ok = (c.amin(dim=1) >= 0) & (c.sum(dim=1) <= _max_c_tot(NK))
+        lk, min_lk = assembly10_plain(esum, fsum, torch.where(
+            ok[:, None], c, 0), n, coef_sub, lhet_sub)
+        return (torch.where(ok[:, None], lk, 0), torch.where(ok, min_lk, 0),
+                (~ok).any().to(I32).reshape(1))
+    return assembly10_launch(esum, fsum, c, n, coef_sub, lhet_sub)
+
+
 def assembly10(esum, fsum, c, n, coef_sub, lhet_sub):
     """The ten-genotype likelihood assembly.
 

@@ -4,25 +4,44 @@ Port of somatic_sniper_tpu/parallel/sharding.py.  Pileup columns are
 independent, so a batch splits along its leading axis with no
 communication until the results are gathered.  The source hands the
 split to GSPMD (a mesh, ``NamedSharding``, one jitted program); torch's
-idiom is explicit: ``sharded_call_batch`` cuts the batch into one
-contiguous part a device (uneven parts allowed), scores each part with
-``models.somatic.call_batch`` on its device, with that device's tables
-and on a stream of its own, and concatenates the results on the first
-device.  ``make_mesh`` and ``shard_column_batch`` have no counterpart:
-a mesh is a list of ``torch.device`` here, and a part is moved where it
-is scored.  ``partition_intervals`` is copied as it was.
+idiom is explicit, in two forms:
 
-The same device may appear twice in the list: its parts then run on two
-streams of that device, which is how a one-card machine (and, with
-``cpu``, a machine with none) exercises the split and the merge.
+* ``graphed_split``, the route of a split slab and of every compact
+  batch on cards (an unsplit one is a single part): the host upload cut
+  into one equal part a device, each part scored by that device's
+  captured step (``models.step_graph.STEP_GRAPHS.run_parts``: one
+  replay a part, the counterpart of the one jitted program), the parts'
+  compact rows gathered on the first device and merged there
+  (``models.somatic.merge_compact``, eager: a few operations) into the
+  unsplit step's rows with the global column index;
+* ``sharded_call_batch``, eager, for the CPU and the full CallResult
+  (the overflow refetch): one contiguous part a device (uneven parts
+  allowed), each scored with ``models.somatic.call_batch`` on its
+  device, with that device's tables and on a stream of its own, the
+  results concatenated on the first device.
+
+``make_mesh`` and ``shard_column_batch`` have no counterpart: a mesh is
+a list of ``torch.device`` here, and a part is moved where it is scored.
+``partition_intervals`` is copied as it was.
+
+The same device may appear twice in the list: its parts then run one
+after the other on that device (two streams eagerly, its capture stream
+when captured, each part with a key and buffers of its own), which is
+how a one-card machine (and, with ``cpu``, a machine with none)
+exercises the split and the merge.  Parts on distinct cards (copies
+between cards, streams that wait on another card's) run in
+chip_smoke.py's ``--cards`` run, which needs two cards or more.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..models import step_graph
 from ..models.glfgen import ColumnBatch
-from ..models.somatic import CallResult, call_batch
+from ..models.somatic import (CallResult, CompactResult, call_batch,
+                              merge_compact)
 from ..models.tables import ModelParams
 
 
@@ -104,8 +123,47 @@ def sharded_call_batch(devices, tumor: ColumnBatch, normal: ColumnBatch,
     else:
         for stream in streams:
             stream.synchronize()
-    return CallResult(*(None if fs[0] is None else torch.cat(fs)
-                        for fs in zip(*parts)))
+    return CallResult(*(
+        None if fs[0] is None
+        # the error word: set if any part's is
+        else torch.stack(fs).amax() if name == "err" else torch.cat(fs)
+        for name, fs in zip(CallResult._fields, zip(*parts))))
+
+
+def graphed_split(graphs, devices, stacked_h: np.ndarray,
+                  meta_h: np.ndarray, dtabs_of, params: ModelParams,
+                  spec) -> tuple[str, CompactResult]:
+    """A slab or a batch, in its host upload layout ([2, B, D] lanes,
+    metadata [R, B]), scored in ``len(devices)`` equal parts, each by
+    its device's captured step in ``graphs`` (a ``models.step_graph
+    .SlabStepGraph``) under ``spec`` (the slab step, or the batch step
+    with ``max_emit`` K): one replay a part.  B must divide evenly, as
+    the JAX package requires of its mesh.  ``dtabs_of(device)`` gives a
+    device's tables.  Returns the route (``SlabStepGraph.run_parts``: a
+    batch key's first call eager, its second captured, later ones
+    replayed; a slab's captured at once) and the CompactResult on
+    ``devices[0]`` with the rows of the unsplit step, global column
+    index included (K = B for a slab).  A single device scores the
+    whole as one part, with no merge: the unsplit batch's route.
+    Nothing waits on the device."""
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    B = stacked_h.shape[1]
+    if n == 0 or B % n:
+        raise ValueError(f"graphed_split: {B} columns in {n} equal parts")
+    part_b = B // n
+    slab = spec.packed16 is None
+    part_spec = spec if slab else spec._replace(
+        max_emit=min(spec.max_emit, part_b))
+    parts = [(dev, dtabs_of(dev), stacked_h[:, i * part_b:(i + 1) * part_b],
+              meta_h[:, i * part_b:(i + 1) * part_b])
+             for i, dev in enumerate(devices)]
+    first = devices[0]
+    route, outs = graphs.run_parts(parts, params, part_spec, first)
+    if n == 1:
+        return route, outs[0]
+    with step_graph._device(first):
+        return route, merge_compact(outs, part_b, B if slab else spec.max_emit)
 
 
 def partition_intervals(

@@ -52,7 +52,7 @@ import torch
 from ..io.native_api import exact_pair_rows, slab_fill_pair
 from ..models.somatic import (COMPACT_FIELDS, MAX_D, call_batch_packed,
                               compact_rows, packed_column_batches)
-from ..models.step_graph import STEP_GRAPHS
+from ..models.step_graph import SLAB, STEP_GRAPHS
 from ..output.dqstats import get_dqstats_rows
 from ..utils.stats import STATS
 
@@ -477,12 +477,14 @@ class TorchSlabDispatcher:
         buffers are owned by the caller and never reused, _flush
         allocates fresh ones).
 
-        On one card the slab goes through the step's captured CUDA graph
+        On a card the slab goes through the step's captured CUDA graph
         (models.step_graph), whose fixed buffers the next slab reuses:
         that holds because one slab is in flight at a time (the
         collector has one worker), which the ``_in_flight`` lock
-        asserts.  The split over several devices and the CPU score
-        eagerly by design; a failed capture or replay raises."""
+        asserts.  Split over several devices, each part goes through
+        its device's captured step (``parallel.sharding
+        .graphed_split``).  Only the CPU scores eagerly; a failed
+        capture or replay raises."""
         if not self._in_flight.acquire(blocking=False):
             raise AssertionError("a second slab in flight")
         try:
@@ -494,10 +496,13 @@ class TorchSlabDispatcher:
         from ..runner import data_mesh, dtabs_for
 
         dtabs = self.dtabs_fn()
+        graphs = STEP_GRAPHS
         STATS.add(f"slabs_at_depth_{stacked_h.shape[2]}", 1)
         mesh = data_mesh(self.device)
-        if mesh is not None and self.B % len(mesh) != 0:
+        if mesh is not None and stacked_h.shape[1] % len(mesh) != 0:
             mesh = None  # such a slab goes unsplit (slab.py:513)
+            STATS.add("slabs_unsplit", 1)
+        graphed = all(graphs.captures_on(d) for d in mesh or [self.device])
         ctx = (torch.cuda.stream(self._stream) if self._stream is not None
                else contextlib.nullcontext())
         with ctx:
@@ -506,23 +511,32 @@ class TorchSlabDispatcher:
                 self._stream.wait_stream(
                     torch.cuda.default_stream(self.device))
             if mesh is not None:
-                # each device is sent its part of the slab, scored
-                # eagerly; the rows are gathered and compacted on the first
-                from .sharding import sharded_call_batch
-
-                cb_t, cb_n = packed_column_batches(
-                    torch.from_numpy(stacked_h.view(np.int32)),
-                    torch.from_numpy(meta_h))
-                res = compact_rows(
-                    sharded_call_batch(mesh, cb_t, cb_n,
-                                       dtabs_for(self.params, "fast"),
-                                       self.params), self.B)
+                # each device is sent its part of the slab; the rows are
+                # gathered and merged on the first
                 STATS.add("slabs_split", 1)
-            elif self._stream is not None:
-                # one card: the captured step, and never the eager one
+                if graphed:
+                    from .sharding import graphed_split
+
+                    STATS.add("slabs_graphed", 1)
+                    res = graphed_split(graphs, mesh, stacked_h, meta_h,
+                                        dtabs_for(self.params, "fast"),
+                                        self.params, SLAB)[1]
+                else:  # CPU parts: the eager step over the plain versions
+                    from .sharding import sharded_call_batch
+
+                    cb_t, cb_n = packed_column_batches(
+                        torch.from_numpy(stacked_h.view(np.int32)),
+                        torch.from_numpy(meta_h))
+                    res = compact_rows(
+                        sharded_call_batch(mesh, cb_t, cb_n,
+                                           dtabs_for(self.params, "fast"),
+                                           self.params),
+                        stacked_h.shape[1])
+            elif graphed:
+                # the captured step, and never the eager one
                 STATS.add("slabs_graphed", 1)
-                return STEP_GRAPHS.run(stacked_h, meta_h, dtabs, self.params,
-                                       self.device)
+                return graphs.run(stacked_h, meta_h, dtabs, self.params,
+                                  self.device)
             else:  # the CPU: the eager step over the plain versions
                 res = call_batch_packed(torch.from_numpy(
                     stacked_h.view(np.int32)), torch.from_numpy(meta_h),

@@ -20,8 +20,10 @@ full-u32 batches through the f64 glfgen.  The JAX package pins that
 exact compute to the host CPU because its accelerator emulates f64; a
 GPU has f64 units, so here it runs on the device the caller names.
 
-With more than one visible GPU every batch and slab is split over them
-(``data_mesh``, ``parallel.sharding.sharded_call_batch``).
+With more than one visible GPU every batch and slab whose size the
+number of GPUs divides is split over them (``data_mesh``): on cards one
+captured step a part (``parallel.sharding.graphed_split``), on the CPU
+and for a full CallResult ``parallel.sharding.sharded_call_batch``.
 
 This module imports torch, and the modules that import it, only inside
 the functions that make a tensor: the all-host exact run
@@ -456,29 +458,35 @@ def submit_call_batch(batch: PairedBatch, ref16: np.ndarray,
     (i32 rows, K = min(MAX_EMIT, bucket)) when ``compact``, else the
     full CallResult of the batch's own columns.
 
-    Each compact batch takes one route, counted in STATS:
+    With a ``data_mesh`` (more than one GPU) the bucket is split into one
+    equal part a device (``batches_split``) when the mesh's size divides
+    it, as the JAX package requires (runner.py:781-782); else it goes
+    unsplit (``batches_unsplit``).  Each compact batch takes one route,
+    counted in STATS:
 
-    * with a ``data_mesh`` (more than one GPU) each device is sent its
-      part of the two uploads and scored eagerly, the results gathered
-      on the first (``batches_eager_split``);
-    * a fast batch deeper than ``MAX_D`` eagerly: its stand-alone
-      ``assembly10`` waits on an error word, a host read no capture
-      allows (``batches_eager_deep``);
-    * on the CPU the eager step over the plain versions
-      (``batches_eager_cpu``);
-    * else the key's captured step (``models/step_graph.STEP_GRAPHS``):
-      a key's first batch eagerly (``batches_eager_first``), its second
+    * on a card the key's captured step (``models/step_graph
+      .STEP_GRAPHS`` through ``parallel.sharding.graphed_split``, whole
+      as one part or split), every depth and both precisions: a key's
+      first batch eagerly (``batches_eager_first``), its second
       captured (``batch_captures``), the others replayed; every batch
-      that replays counts in ``batches_graphed``.
+      that replays counts in ``batches_graphed``.  A split batch does
+      the same with one captured step a part and device, counted in
+      ``batch_captures_split`` and ``batches_graphed_split``;
+    * on the CPU the eager step over the plain versions
+      (``batches_eager_cpu``), split over the mesh by
+      ``sharded_call_batch``.
 
-    The full CallResult (the overflow refetch, ``run_call_batch``) is
-    scored eagerly.  A failed capture or replay raises: nothing scores
-    the batch eagerly in its place."""
+    A fast batch deeper than ``MAX_D`` leaves the stand-alone
+    ``assembly10``'s error word on the device, in the CompactResult's
+    ``err``; ``collect_pending`` reads it with the counts.  The full
+    CallResult (the overflow refetch, ``run_call_batch``) is scored
+    eagerly.  A failed capture or replay raises: nothing scores the
+    batch eagerly in its place."""
     import torch
 
     from .models import step_graph
-    from .models.somatic import (MAX_D, CallResult, call_batch,
-                                 compact_rows, stacked_column_batches)
+    from .models.somatic import (CallResult, call_batch, compact_rows,
+                                 stacked_column_batches)
 
     b0 = len(batch.keys)
     B = _b_bucket(b0)
@@ -494,8 +502,30 @@ def submit_call_batch(batch: PairedBatch, ref16: np.ndarray,
     STATS.add("device_columns", b0)
     device = torch.device(device)
     graphs = step_graph.STEP_GRAPHS
-    deep = precision == "fast" and stacked_h.shape[2] > MAX_D
     mesh = data_mesh(device)
+    if mesh is not None and B % len(mesh):
+        mesh = None
+        if compact:
+            STATS.add("batches_unsplit", 1)
+    elif mesh is not None and compact:
+        STATS.add("batches_split", 1)
+    if compact and all(graphs.captures_on(d) for d in mesh or [device]):
+        from .parallel.sharding import graphed_split
+
+        spec = step_graph.StepSpec(batch.packed16, precision,
+                                   min(MAX_EMIT, B))
+        split = "" if mesh is None else "_split"
+        route, res = graphed_split(
+            graphs, mesh or [device], stacked_h, meta_h,
+            (lambda _: dtabs) if mesh is None
+            else dtabs_for(dtabs.params, precision), dtabs.params, spec)
+        STATS.add("batches_eager_first" if route == "first"
+                  else f"batches_graphed{split}", 1)
+        if route == "capture":
+            STATS.add(f"batch_captures{split}", 1)
+        STATS.add(f"batch_key_{'u16' if batch.packed16 else 'u32'}_"
+                  f"{precision}_{B}x{stacked_h.shape[2]}", 1)
+        return res
     if mesh is not None:
         from .parallel.sharding import sharded_call_batch
 
@@ -506,19 +536,6 @@ def submit_call_batch(batch: PairedBatch, ref16: np.ndarray,
             res = sharded_call_batch(mesh, cb_t, cb_n,
                                      dtabs_for(dtabs.params, precision),
                                      dtabs.params, precision)
-        STATS.add("batches_eager_split", 1)
-    elif compact and not deep and graphs.captures_on(device):
-        spec = step_graph.StepSpec(batch.packed16, precision,
-                                   min(MAX_EMIT, B))
-        route, res = graphs.run_batch(stacked_h, meta_h, dtabs,
-                                      dtabs.params, device, spec)
-        STATS.add("batches_eager_first" if route == "first"
-                  else "batches_graphed", 1)
-        if route == "capture":
-            STATS.add("batch_captures", 1)
-        STATS.add(f"batch_key_{'u16' if batch.packed16 else 'u32'}_"
-                  f"{precision}_{B}x{stacked_h.shape[2]}", 1)
-        return res
     else:
         with STATS.timer("device.upload"):
             stacked = torch.from_numpy(stacked_h).to(device)
@@ -527,11 +544,10 @@ def submit_call_batch(batch: PairedBatch, ref16: np.ndarray,
             res = call_batch(*stacked_column_batches(stacked, meta,
                                                      batch.packed16),
                              dtabs, dtabs.params, precision)
-        if compact:
-            STATS.add("batches_eager_deep" if deep
-                      else "batches_eager_cpu", 1)
     if not compact:
-        return CallResult(*(v if v is None else v[:b0] for v in res))
+        return CallResult(*(v if v is None or name == "err" else v[:b0]
+                            for name, v in res._asdict().items()))
+    STATS.add("batches_eager_cpu", 1)
     return compact_rows(res, MAX_EMIT)
 
 
@@ -540,17 +556,23 @@ def run_call_batch(batch: PairedBatch, ref16: np.ndarray,
                    precision: str = "fast") -> CallResult:
     """Synchronous wrapper over submit_call_batch (runner.py:815-819):
     the full CallResult of one batch as numpy arrays on the host, all
-    fields brought home in one copy."""
+    fields brought home in one copy, the error word beside them (a set
+    one raises ValueError, as in ``collect_pending``)."""
     import torch
 
     from .models.somatic import CallResult
 
     res = submit_call_batch(batch, ref16, dtabs, device, compact=False,
                             precision=precision)
-    live = {name: v for name, v in res._asdict().items() if v is not None}
+    live = {name: v for name, v in res._asdict().items()
+            if v is not None and name != "err"}
     B = len(batch.keys)
     cols = [v.reshape(B, -1).to(torch.int32) for v in live.values()]
+    if res.err is not None:
+        cols.append(res.err.to(torch.int32).expand(B, 1))
     host = torch.cat(cols, dim=1).cpu().numpy()
+    if res.err is not None:
+        _raise_on_count_error(host[:1, -1], [batch.tumor.shape[1]])
     ends = np.cumsum([c.shape[1] for c in cols])
     out = {}
     for (name, v), part in zip(live.items(), np.split(host, ends[:-1], 1)):
@@ -559,15 +581,25 @@ def run_call_batch(batch: PairedBatch, ref16: np.ndarray,
     return CallResult(**out)
 
 
+def _raise_on_count_error(errs, depths) -> None:
+    """Raise the stand-alone ``assembly10``'s ValueError for the first
+    batch whose error word is set (a class count outside the assembly
+    tables of its depth D)."""
+    from .ops.glfgen_kernels import MAX_D, _count_error
+
+    for err, D in zip(errs, depths):
+        if err:
+            raise ValueError(_count_error(min(D, MAX_D) + 1))
+
+
 def submit_batches(pu_t, pu_n, refcache, dtabs, device, drop_t, drop_n,
                    packed16, ref16_fn, cap_mapq,
                    max_batch: int = MAX_BATCH,
                    precision: str = "fast") -> list:
     """Score every paired batch on the device (runner.py:399-418);
     returns the pending list for collect_pending, which fetches the
-    rows.  Only counts and rows wait for the device: the kernels queue
-    on its stream.  (A batch deeper than 255 still waits inside its
-    submit: its assembly10 call reads an error word.)"""
+    rows.  Only counts, error words and rows wait for the device: the
+    kernels queue on its stream, at every depth."""
     pending = []
     batches = paired_batches(pu_t, pu_n, max_batch=max_batch,
                              drop_tumor=drop_t, drop_normal=drop_n,
@@ -593,19 +625,24 @@ def collect_pending(pending, pu_t, pu_n, refcache, dtabs, device,
                     precision: str = "fast") -> list[tuple[int, object]]:
     """Fetch the compacted results and build the output lines (the
     records when ``fmt`` is None), sorted by column key
-    (runner.py:624-698).  The counts come home in one copy,
-    then each batch's first ``count`` rows (torch slices them exactly,
-    so the JAX package's power-of-two fetch buckets, ``_emit_bucket``
-    :727-734, are not needed).  A batch that emitted more rows than its
-    compact result holds is scored again in full and emitted from the
-    CallResult."""
+    (runner.py:624-698).  The counts and the error words come home in
+    one copy, then each batch's first ``count`` rows (torch slices them
+    exactly, so the JAX package's power-of-two fetch buckets,
+    ``_emit_bucket`` :727-734, are not needed).  A set error word (a
+    fast batch deeper than 255 whose class counts fell outside the
+    assembly tables) raises the stand-alone ``assembly10``'s ValueError
+    here.  A batch that emitted more rows than its compact result holds
+    is scored again in full and emitted from the CallResult."""
     import torch
 
     records: list[tuple[int, object]] = []
     if not pending:
         return records
     with STATS.timer("device"):
-        counts = torch.stack([p[2].count for p in pending]).cpu().tolist()
+        words = torch.stack([w for p in pending
+                             for w in (p[2].count, p[2].err)]).cpu()
+    counts, errs = words[0::2].tolist(), words[1::2].tolist()
+    _raise_on_count_error(errs, [p[0].tumor.shape[1] for p in pending])
     for (batch, ref16, res), count in zip(pending, counts):
         if count <= 0:
             continue

@@ -14,7 +14,8 @@ the CPU with the eager step standing in for the replay
 (``tests/torch_port_util.eager_stand_in``) holds what surrounds the
 graph: the capture policy (a key's first batch eager, its second
 captured, later ones replayed, a one-off tail never captured), the
-routes that stay eager and their counters, the launch counts, two
+routes of a deep fast batch and of the split over devices, the CPU's
+eager route, their counters, the launch counts, two
 pending replays of one key each keeping its own rows, and a failed
 capture.  The card's graph is held to the eager step in
 tests/test_torch_cuda.py.
@@ -49,7 +50,8 @@ CPU = torch.device("cpu")
 PM1 = ("tumor_cnsq", "normal_cnsq", "tumor_vaq", "normal_vaq",
        "somatic_score", "joint_cnsq")
 ROUTES = ("batches_graphed", "batch_captures", "batches_eager_first",
-          "batches_eager_deep", "batches_eager_split", "batches_eager_cpu")
+          "batches_graphed_split", "batch_captures_split", "batches_split",
+          "batches_unsplit", "batches_eager_cpu")
 LAYOUTS = [(True, "fast"), (False, "fast"), (False, "exact")]
 LAYOUT_IDS = ["u16-fast", "u32-fast", "u32-exact"]
 
@@ -272,11 +274,13 @@ def test_capture_policy_and_pending_rows(cpu_graphs, packed16, precision):
 @pytest.mark.parametrize("route", ["deep", "split", "cpu"])
 def test_eager_routes_are_counted_and_never_captured(cpu_graphs, monkeypatch,
                                                     route):
-    """A fast batch deeper than 255 (its assembly waits on an error
-    word), the split over several devices, and the CPU without a
-    capturing registry score eagerly, three times over, and count their
-    route; no key is captured.  An exact batch deeper than 255 has no
-    such wait and takes the captured step's route."""
+    """Three batches of one key.  A fast batch deeper than 255 (its
+    assembly's error word stays on the device) and the split over two
+    devices (one captured step a part) take the captured routes: the
+    first eager, the second captured, the third replayed, each counted
+    as such.  Only the CPU without a capturing registry scores eagerly
+    three times and captures nothing.  An exact batch deeper than 255
+    takes the captured route too."""
     D = 300 if route == "deep" else 16
     params = ModelParams(min_somatic_qual=0)
     dtabs = device_tables(build_tables(params), CPU)
@@ -292,15 +296,31 @@ def test_eager_routes_are_counted_and_never_captured(cpu_graphs, monkeypatch,
             want = _port_stacked(stacked, meta, False, dtabs, params,
                                  "fast", runner.MAX_EMIT)
             assert _rows(res)[1].tobytes() == _rows(want)[1].tobytes()
-    assert _routes() == {f"batches_eager_{route}": 3}
-    assert cpu_graphs.captures() == {}
+            assert int(res.err) == 0
+    spec = sg.StepSpec(False, "fast", 256)
+    if route == "cpu":
+        assert _routes() == {"batches_eager_cpu": 3}
+        assert cpu_graphs.captures() == {}
+    elif route == "deep":
+        assert _routes() == {"batches_eager_first": 1, "batch_captures": 1,
+                             "batches_graphed": 2}
+        assert list(cpu_graphs.captures()) == [
+            cpu_graphs.key(CPU, 256, D, params, dtabs, spec)]
+    else:
+        assert _routes() == {"batches_split": 3, "batches_eager_first": 1,
+                             "batch_captures_split": 1,
+                             "batches_graphed_split": 2}
+        part_spec = spec._replace(max_emit=128)
+        assert list(cpu_graphs.captures()) == [
+            cpu_graphs.key(CPU, 128, D, params, dtabs, part_spec, i)
+            for i in (0, 1)]
     if route == "deep":
         exact = device_tables(build_tables(params), CPU, "exact")
         for seed in (1, 2):
             batch, ref16 = _batch(64, D, seed, False)
             runner.submit_call_batch(batch, ref16, exact, CPU,
                                      precision="exact")
-        assert _routes()["batch_captures"] == 1
+        assert _routes()["batch_captures"] == 2
 
 
 def test_failed_batch_capture_raises_and_keeps_nothing(cpu_graphs,

@@ -88,7 +88,7 @@ def _fused_call(encoding, tcb, dtabs):
 def _spy(monkeypatch):
     """Records which kernel wrappers glfgen_batch calls."""
     called = []
-    for name in (*FUSED.values(), *TWO_STEP.values(), "assembly10"):
+    for name in (*FUSED.values(), *TWO_STEP.values(), "assembly10_flagged"):
         def wrapped(*args, _fn=getattr(tg, name), _name=name):
             called.append(_name)
             return _fn(*args)
@@ -123,14 +123,17 @@ def test_fused_wrappers_match_xla(encoding, D, monkeypatch):
 @pytest.mark.parametrize("encoding", ["u16", "u32"])
 def test_glfgen_batch_two_step_above_255(encoding, D, monkeypatch):
     """Deeper batches take the accumulate, the c_tot > 255 rescale and
-    assembly10, and still match the XLA fast path."""
+    assembly10 with its error word left on the device
+    (``assembly10_flagged``, 0 here), and still match the XLA fast
+    path."""
     jcb, tcb = _batches(encoding, 32, D, seed=D)
     tabs = T.build_tables(T.ModelParams())
     fk, coef, lhet = f32_tables(tabs)
     want = glfgen_batch(jcb, fk, coef, lhet, precision="fast", backend="xla")
     called = _spy(monkeypatch)
     got = tg.glfgen_batch(tcb, device_tables(tabs, CPU), 60)
-    assert called == [TWO_STEP[encoding], "assembly10"]
+    assert called == [TWO_STEP[encoding], "assembly10_flagged"]
+    assert got.err.dtype == torch.int32 and got.err.tolist() == [0]
     np.testing.assert_array_equal(got.depth.numpy(), np.asarray(want.depth))
     np.testing.assert_array_equal(got.rms_mapq.numpy(),
                                   np.asarray(want.rms_mapq))

@@ -184,11 +184,14 @@ def test_data_mesh_policy(monkeypatch):
     assert runner.data_mesh(CPU) is None
 
 
+@pytest.mark.parametrize("n", [3, 4])
 @pytest.mark.parametrize("packed16", [True, False], ids=["u16", "u32"])
-def test_submit_call_batch_under_a_mesh(packed16):
-    """The production hook: a batch dispatched under a mesh of three
-    parts (53 columns: uneven) compacts to the rows of the unsplit
-    dispatch, and the full result is equal too."""
+def test_submit_call_batch_under_a_mesh(packed16, n):
+    """The production hook on the CPU: a batch of 53 columns, padded to
+    its bucket of 256, dispatched under a mesh of three parts (which
+    does not divide the bucket: unsplit, as the JAX package leaves it)
+    or four (split by the eager ``sharded_call_batch``), compacts to the
+    rows of the unsplit dispatch, and the full result is equal too."""
     B, D = 53, 24
     stacked, meta = random_stacked(B, D, 5, packed16)
     extra = (dict(nk_tumor=meta[3], nk_normal=meta[4], rms_tumor=meta[5],
@@ -203,11 +206,13 @@ def test_submit_call_batch_under_a_mesh(packed16):
     full = runner.submit_call_batch(batch, meta[2], dtabs, CPU,
                                     compact=False)
     STATS.reset()
-    with runner.forced_mesh([CPU] * 3):
+    with runner.forced_mesh([CPU] * n):
         got = runner.submit_call_batch(batch, meta[2], dtabs, CPU)
         got_full = runner.submit_call_batch(batch, meta[2], dtabs, CPU,
                                             compact=False)
-    assert STATS.snapshot().get("batches_eager_split") == 2
+    snap = STATS.snapshot()
+    assert snap.get("batches_eager_cpu") == 1
+    assert snap.get("batches_unsplit" if n == 3 else "batches_split") == 1
     assert int(got.count) == int(want.count) > 0
     assert torch.equal(got.rows, want.rows)
     _assert_equal_results(got_full, full)
