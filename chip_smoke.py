@@ -28,7 +28,10 @@ closing ``{"ok": true, ...}`` line is never printed):
    ``glfgen`` and ``glfgen16`` (an accumulate and the assembly in one
    launch) against ``assembly10_plain`` applied to the stand-alone
    accumulate kernel's sums: lk, min_lk, rms and n equal, two launches
-   the same bits;
+   the same bits; and ``score_columns`` (consensus, score, gates,
+   statuses and dqstats in one launch) against ``score_columns_plain``
+   bit for bit, both priors, every gate flag, with the dqstats at the
+   slab shapes and without at (65536, 40), timed;
 4. the main path at a size users run: the port's CLI on a simulated
    10 Mb tumor/normal pair at 30x (windowed driver), fast precision on
    the card against exact precision (native host scoring) under the fast
@@ -54,8 +57,10 @@ closing ``{"ok": true, ...}`` line is never printed):
    timed at the shape that carried the most columns: the times of the
    ``kernels`` line, each beside its bound (the least time the card
    could take: the bytes the inputs need over the memory rate, or the
-   operations over the f32 rate, whichever is larger).  A kernel faster
-   than its bound is a fault of the count and fails the run;
+   operations over the f32 rate, whichever is larger); ``score_columns``
+   at every shape of each path, with the dqstats on the slab path's.  A
+   kernel faster than its bound is a fault of the count and fails the
+   run;
 9. ``--jobs 1``, ``2`` and ``4`` through the port's CLI, each in a child
    process, on the 10 Mb pair, fast on the card: output bytes equal to
    phase 4's; wall and cols/s of each beside the single process, every
@@ -81,12 +86,17 @@ closing ``{"ok": true, ...}`` line is never printed):
     launches a call, its ms and host queue ms beside the unsplit graphed
     step's and the eager split's, each part's capture ms and the pool;
 13. ``utils.mfu.bench_kernel`` on the card at (8192, 48), the production
-    slab, and at (32768, 64): every step launched ``glfgen32`` twice and
-    no stand-alone kernel, one step's rows equal those of the same step
-    through the plain versions on the card; the graphed step's time (as
-    the slab path replays it), the eager step's beside it, the host's
-    queue time of each and the whole production call of a slab, the
-    rate, both FLOP counts, the three bounds and the verdict printed;
+    slab, and at (32768, 64): every step launched ``glfgen32`` twice,
+    ``score_columns`` once and no stand-alone kernel, the slab step
+    under 40 device operations; the same benchmark with
+    ``score_columns_plain`` in the kernel's place (the step as torch
+    ops) between two kernel runs, their device operations, graphed,
+    eager and whole-call times side by side; one step's rows equal
+    those of the same step through the plain versions on the card; the
+    graphed step's time (as the slab path replays it), the eager step's
+    beside it, the host's queue time of each and the whole production
+    call of a slab, the rate, both FLOP counts, the three bounds and the
+    verdict printed;
 14. ``parallel.dryrun.entry()`` on the card: ``fn(*args)`` launches
     ``glfgen`` twice and every field equals ``entry("cpu")``'s (integer
     fields; a histogram of differences is printed if any);
@@ -103,14 +113,18 @@ closing ``{"ok": true, ...}`` line is never printed):
 17. the captured step against the eager step: every slab depth the
     dispatcher can pick (``ALLOWED_D``) at B = 8192, with and without
     joint priors, two input sets back to back; count and rows equal
-    byte for byte, the same launch counts; each capture's time and the
-    graph pool's device memory printed;
+    byte for byte, the same launch counts; each capture's time, each
+    key's device operations an eager step and replay ms (beside the
+    torch-op step's recorded numbers) and the graph pool's device memory
+    printed;
 18. the captured batch step against the eager step: every (encoding,
     precision, B bucket, D) key that phases 6, 7 and 11 sent through
     the captured step, in a registry of its own, a key's first batch
     eager, then captured and replayed, on two input sets: count and
     rows byte-equal, the same launches; each key's capture ms, eager
-    and graphed ms and the host's queue ms of each, and the pool's MiB;
+    and graphed ms and the host's queue ms of each, its device
+    operations an eager step beside the torch-op step's recorded replay ms,
+    and the pool's MiB;
     a fast key of depth 300 among them; then a count pushed outside the
     assembly tables before that key's replay: its error word set, and
     ``collect_pending`` raising the stand-alone ``assembly10``'s
@@ -179,12 +193,25 @@ KERNELS = {
     "glfgen32": (CSRC + "accumulate32.cu", f"{PALLAS}:578 and {PALLAS}:526"),
     "glfgen": (CSRC + "accumulate.cu", f"{PALLAS}:717 and {PALLAS}:526"),
     "glfgen16": (CSRC + "accumulate16.cu", f"{PALLAS}:652 and {PALLAS}:526"),
+    # no Pallas kernel: the XLA fusions of the jitted call_batch after its
+    # glfgen (consensus, score, gates, statuses, dqstats)
+    "score_columns": (CSRC + "score_columns.cu",
+                      "somatic_sniper_tpu/models/somatic.py:130 (call_batch "
+                      "after glfgen; consensus.py:41-211, somatic.py:62-128)"),
 }
 # the fused kernel that runs a stand-alone kernel's code on each path
 FUSED_AS = {"accumulate32": "glfgen32", "assembly10": "glfgen32",
             "accumulate": "glfgen", "accumulate16": "glfgen16"}
 # the empty kernel that measures the launch floor: (blocks, threads)
 FLOOR_GRID = (1024, 256)
+# the scoring step before score_columns (consensus, score, gates and
+# dqstats as torch ops), as PERF.md records it on an H100 80GB HBM3 at
+# 700 W: ~1234 device operations an eager slab step, a slab replay of
+# 2.07-2.27 ms at (8192, 48), a batch replay of 0.86-1.35 ms fast and
+# 2.4-10.3 ms exact
+TORCH_OP_STEP = {"slab_ops": 1234, "slab_replay_ms": "2.07-2.27",
+               "batch_replay_ms_fast": "0.86-1.35",
+               "batch_replay_ms_exact": "2.4-10.3"}
 
 
 def phase(name: str) -> None:
@@ -390,6 +417,87 @@ def fused_bound(lanes: int, lane_bytes: int, B: int, words_in: int,
     return bound_ms(lanes * lane_bytes + 4 * B * (words_in + words_out)
                     + 1024 + assembly_table_bytes(tables, B),
                     3 * taken + ASSEMBLY_FLOPS_PER_COLUMN * B)
+
+
+def score_bound(B: int, lanes: int, dq: bool) -> tuple[float, str]:
+    """Bound of score_columns on B columns: 2 x 10 likelihoods, the two
+    raw depths, glfgen's two counts and ref16 in (25 words a column),
+    the emit byte and 16 fields out, and the 640-byte solo prior (the
+    joint prior's 6.4 KB in joint mode, which the timed calls do not
+    run); with the dqstats also both samples' n_keep and their
+    ``lanes`` occupied lanes in, 36 words a column out.  Operations:
+    the two f32 ones of each of the 18 means a column; the integer work
+    (scans, qAdd folds, counts) has no published peak and is left out."""
+    n_bytes = 4 * B * 25 + B * (1 + 64) + 640
+    flops = 0
+    if dq:
+        n_bytes += 4 * B * 2 + 4 * lanes + 4 * B * 36
+        flops = 2 * 18 * B
+    return bound_ms(n_bytes, flops)
+
+
+def score_args(B: int, D: int, seed: int, hi: int, dev, torch):
+    """score_columns' per-column inputs at (B, D), drawn like the slab
+    lanes: likelihoods in [0, hi) (a small hi forces ties), the raw
+    depth one more than the kept lanes where any are kept, glfgen's
+    count n_keep, ref16 from the lanes with every 97th column 15.
+    Returns (lk_t, lk_n, depth_t, depth_n, n_t, n_n, ref16, (slots_t,
+    nk_t, slots_n, nk_n)) on ``dev``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s_t, nk_t, ref16 = random_slab_lanes(B, D, seed)
+    s_n, nk_n, _ = random_slab_lanes(B, D, seed + 1000)
+    ref16[::97] = 15
+    arrays = (rng.integers(0, hi, (B, 10)).astype(np.int32),
+              rng.integers(0, hi, (B, 10)).astype(np.int32),
+              nk_t + (nk_t > 0), nk_n + (nk_n > 0), nk_t, nk_n, ref16)
+    on = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+          for a in (*arrays, s_t, nk_t, s_n, nk_n)]
+    return (*on[:7], tuple(on[7:]))
+
+
+def score_case(B: int, D: int, dev, torch, dq: bool) -> "Case":
+    """score_columns against score_columns_plain on the card at (B, D),
+    bit for bit (emit, the 16 fields and, with ``dq``, both dqstats
+    rows): both priors, every gate flag each way, tie-heavy and full
+    likelihood ranges, two launches the same bits.  Timed with the
+    default parameters (no joint priors), on the full range."""
+    from somatic_sniper_tpu_torch.models.tables import (ModelParams,
+                                                        build_tables,
+                                                        device_tables)
+    from somatic_sniper_tpu_torch.ops import score_kernels as sk
+
+    for joint in (False, True):
+        dtabs = device_tables(build_tables(ModelParams(
+            use_joint_priors=joint)), dev)
+        for hi in (4, 256):
+            *cols, lanes = score_args(B, D, B + D + hi, hi, dev, torch)
+            for loh, gor in ((True, True), (False, True), (True, False),
+                             (False, False)):
+                params = ModelParams(use_joint_priors=joint,
+                                     include_loh=loh, include_gor=gor)
+                args = (*cols, dtabs.solo_prior, dtabs.joint_prior,
+                        dtabs.q_r_int, params, lanes if dq else None)
+                got, again = sk.score_columns(*args), sk.score_columns(*args)
+                want = sk.score_columns_plain(*args)
+                torch.cuda.synchronize()
+                for name, a, a2, b in zip(got._fields, got, again, want):
+                    if (a is None) != (b is None) or (a is not None and not (
+                            torch.equal(a, b) and torch.equal(a, a2))):
+                        raise AssertionError(
+                            f"score_columns {name} differs from its plain "
+                            f"version at {(B, D)}: joint {joint}, hi {hi}, "
+                            f"include_loh {loh}, include_gor {gor}, dq {dq}")
+    params = ModelParams()
+    dtabs = device_tables(build_tables(params), dev)
+    *cols, lanes = score_args(B, D, B + D, 256, dev, torch)
+    args = (*cols, dtabs.solo_prior, dtabs.joint_prior, dtabs.q_r_int,
+            params, lanes if dq else None)
+    occupied = int(lanes[1].clamp(max=D).sum() + lanes[3].clamp(max=D).sum())
+    return Case(0.0, lambda: sk.score_columns(*args),
+                lambda: sk.score_columns_plain(*args),
+                score_bound(B, occupied, dq))
 
 
 class Case(NamedTuple):
@@ -638,7 +746,9 @@ def kernels_at_path_shapes(shapes: dict, dtabs, dev, torch,
                            floor_ms: float) -> dict:
     """Phase 8: every kernel against its plain version at every shape its
     path ran (random lanes), timed at the path's main shape (the first:
-    the depth that carried the most columns).  ``shapes`` maps a family
+    the depth that carried the most columns); score_columns at each
+    family's shapes (a u16 shape overwrites an equal u32 one: both
+    score without dqstats).  ``shapes`` maps a family
     ("slab", "u32", "u16") to its shapes.  Returns {(name, shape):
     (max_abs_err, ms, plain_ms, device_ms, plain_device_ms, bound_ms,
     bound_by) or (max_abs_err,)}."""
@@ -649,6 +759,9 @@ def kernels_at_path_shapes(shapes: dict, dtabs, dev, torch,
         for i, (B, D) in enumerate(fam_shapes):
             cases = (slab_cases(B, D, dtabs, dev, torch) if fam == "slab"
                      else rank_cases(B, D, dtabs, dev, torch, family[fam]))
+            # the dqstats ride only on the slab's raw lanes
+            cases["score_columns"] = score_case(B, D, dev, torch,
+                                                dq=fam == "slab")
             for name, case in cases.items():
                 if i == 0:
                     out[name, (B, D)] = timed(name, (B, D), case, torch,
@@ -776,8 +889,12 @@ def u32_batches(loaded, t_load: float, n_cols: int, exact_lines: list[str],
                 f"the native exact scorer's {len(want)}")
         print(f"  {len(lines)} lines byte-equal to the native exact "
               "output", flush=True)
-        # the f64 glfgen is torch ops: it launches no hand-written kernel
-        if batches == 0 or dev_cols == 0 or any(launches.values()):
+        # the f64 glfgen is torch ops: the scoring after it is the one
+        # hand-written kernel an exact batch launches
+        others = {k: v for k, v in launches.items()
+                  if v and k != "score_columns"}
+        if (batches == 0 or dev_cols == 0 or others
+                or launches["score_columns"] < batches):
             raise AssertionError(f"{batches} exact batches, {dev_cols} "
                                  f"device columns, launches {launches}")
     return launches, stats
@@ -788,13 +905,17 @@ def check_batch_launches(launches: dict, stats: dict, fused: str,
     """A batch run's launch counts: two samples a batch; every batch to
     depth 255 through the fused kernel alone, and the stand-alone
     accumulate and assembly10 only for deeper batches (one each a
-    sample), so that no batch to depth 255 waits on an error word."""
+    sample), so that no batch to depth 255 waits on an error word; and
+    score_columns at least once a batch (the overflow refetch scores a
+    batch again)."""
     batches = int(stats.get("batches_dispatched", 0))
     deep = any(D > 255 for _, D in
                path_shapes(stats, "batch_columns_at_depth_", lambda n: n))
     others = {k: v for k, v in launches.items()
-              if v and k not in (fused, two_step, "assembly10")}
+              if v and k not in (fused, two_step, "assembly10",
+                                 "score_columns")}
     if (batches == 0 or others or launches[fused] == 0
+            or launches["score_columns"] < batches
             or launches[fused] + launches[two_step] < 2 * batches
             or launches["assembly10"] != launches[two_step]
             or (launches[two_step] > 0) != deep):
@@ -1171,11 +1292,15 @@ def split_batches(dtabs, dev, torch, mesh=None) -> dict:
                                        params)
             torch.cuda.synchronize()
             name = "glfgen32" if raw else "glfgen"
+            # a part: glfgen of two samples, then score_columns
             if (gk.LAUNCHES[name] != n_launch
-                    or sum(gk.LAUNCHES.values()) != n_launch):
+                    or gk.LAUNCHES["score_columns"] != len(mesh)
+                    or sum(gk.LAUNCHES.values()) != n_launch + len(mesh)):
                 raise AssertionError(f"{len(mesh)} parts of two samples "
                                      f"launched {gk.LAUNCHES}")
             total[name] = total.get(name, 0) + n_launch
+            total["score_columns"] = (total.get("score_columns", 0)
+                                      + len(mesh))
             for f, a, b in zip(whole._fields, split, whole):
                 if (a is None) != (b is None) or (
                         a is not None and not torch.equal(a, b)):
@@ -1282,10 +1407,13 @@ def graphed_split_against_unsplit(dev, torch, mesh=None) -> dict:
                     f"{n} rows against {n_u} unsplit, {int(eager.count)} "
                     "eager split")
             if (launches[name] != 2 * n_parts
-                    or sum(launches.values()) != 2 * n_parts):
+                    or launches["score_columns"] != n_parts
+                    or sum(launches.values()) != 3 * n_parts):
                 raise AssertionError(f"{n_parts} parts of two samples "
                                      f"launched {launches}")
             total[name] = total.get(name, 0) + 2 * n_parts
+            total["score_columns"] = (total.get("score_columns", 0)
+                                      + n_parts)
         want = ["capture", "replay", "replay"] if slab else \
             ["first", "capture", "replay"]
         if routes != want:
@@ -1310,7 +1438,8 @@ def graphed_split_against_unsplit(dev, torch, mesh=None) -> dict:
         print(f"  B={B} D={D} {what}: graphed split over [{names}] "
               f"byte-equal to the unsplit graphed step and to the eager "
               f"split on three sets ({n} rows of the last), routes "
-              f"{routes}, {name} {2 * n_parts} a call; per call: graphed "
+              f"{routes}, {name} {2 * n_parts} and score_columns {n_parts} "
+              f"a call; per call: graphed "
               f"split {split_ms:.3f} ms (queued in {split_q:.3f}), unsplit "
               f"graphed {unsplit_ms:.3f} ms (queued in {unsplit_q:.3f}), "
               f"eager split {eager_ms:.3f} ms (queued in {eager_q:.3f}); "
@@ -1342,17 +1471,42 @@ def step_diff(got, want, torch) -> dict:
     return hist
 
 
+def bench_plain_scoring(B: int, D: int):
+    """``utils.mfu.bench_kernel`` with ``score_columns_plain`` in the
+    kernel's place, in a registry of captured steps of its own: the
+    scoring step before score_columns (glfgen32, then the torch ops of
+    consensus, score, gates and dqstats), measured in this call on this
+    card."""
+    from somatic_sniper_tpu_torch.models import somatic as ms
+    from somatic_sniper_tpu_torch.models import step_graph as sg
+    from somatic_sniper_tpu_torch.ops import score_kernels as sk
+    from somatic_sniper_tpu_torch.utils import mfu
+
+    saved = sg.STEP_GRAPHS, ms.score_columns
+    sg.STEP_GRAPHS, ms.score_columns = sg.SlabStepGraph(), \
+        sk.score_columns_plain
+    try:
+        return mfu.bench_kernel(B=B, D=D, iters=16)
+    finally:
+        sg.STEP_GRAPHS, ms.score_columns = saved
+
+
 def bench_kernel_on_card(dev, torch) -> None:
-    """Phase 13: the scoring step's microbenchmark on the card."""
+    """Phase 13: the scoring step's microbenchmark on the card, the
+    step through score_columns (twice, for the spread) beside the same
+    step through its plain version (the step before the kernel) in
+    between."""
     import numpy as np
 
     from somatic_sniper_tpu_torch.models import glfgen as mg
+    from somatic_sniper_tpu_torch.models import somatic as ms
     from somatic_sniper_tpu_torch.models.somatic import (
         call_batch, call_batch_packed, packed_column_batches)
     from somatic_sniper_tpu_torch.models.tables import (ModelParams,
                                                         build_tables,
                                                         device_tables)
     from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+    from somatic_sniper_tpu_torch.ops import score_kernels as sk
     from somatic_sniper_tpu_torch.utils import mfu
 
     params = ModelParams()
@@ -1361,24 +1515,46 @@ def bench_kernel_on_card(dev, torch) -> None:
         gk.reset_launches()
         r = mfu.bench_kernel(B=B, D=D, iters=16)
         others = {k: v for k, v in gk.LAUNCHES.items()
-                  if v and k != "glfgen32"}
+                  if v and k not in ("glfgen32", "score_columns")}
         if (r.steps_run < 40 or gk.LAUNCHES["glfgen32"] != 2 * r.steps_run
-                or others or r.kernel_launches != {"glfgen32": 2}):
+                or gk.LAUNCHES["score_columns"] != r.steps_run or others
+                or r.kernel_launches != {"glfgen32": 2, "score_columns": 1}):
             raise AssertionError(
                 f"bench_kernel at {(B, D)}: {r.steps_run} steps launched "
                 f"{gk.LAUNCHES}, a step {r.kernel_launches}")
+        if B == 8192 and r.launches_per_step >= 40:
+            raise AssertionError(f"the eager slab step queues "
+                                 f"{r.launches_per_step} device operations")
+        plain = bench_plain_scoring(B, D)
+        again = mfu.bench_kernel(B=B, D=D, iters=16)
+        print(f"  B={B} D={D} scoring step, kernel against its plain "
+              f"version in this call: device operations a step "
+              f"{r.launches_per_step} against {plain.launches_per_step} "
+              f"(torch-op step recorded {TORCH_OP_STEP['slab_ops']} at "
+              f"(8192, 48)); "
+              f"graphed step {r.measured_slab_s * 1e3:.4f} ms, again "
+              f"{again.measured_slab_s * 1e3:.4f} ms, against "
+              f"{plain.measured_slab_s * 1e3:.4f} ms (torch-op step recorded "
+              f"{TORCH_OP_STEP['slab_replay_ms']} ms at (8192, 48)); eager "
+              f"step {r.eager_slab_s * 1e3:.4f} / "
+              f"{again.eager_slab_s * 1e3:.4f} ms against "
+              f"{plain.eager_slab_s * 1e3:.4f} ms; a slab's whole call "
+              f"{r.graph_run_s * 1e3:.4f} / {again.graph_run_s * 1e3:.4f} ms "
+              f"against {plain.graph_run_s * 1e3:.4f} ms", flush=True)
         stacked_h, meta_h = mfu.bench_inputs(B, D)
         stacked = torch.from_numpy(stacked_h.view(np.int32)).to(dev)
         meta = torch.from_numpy(meta_h).to(dev)
         cbs = packed_column_batches(stacked, meta)
         got = (call_batch_packed(stacked, meta, dtabs, params),
                call_batch(*cbs, dtabs, params))
-        kernel, mg.glfgen32 = mg.glfgen32, gk.glfgen32_plain
+        kernels = mg.glfgen32, ms.score_columns
+        mg.glfgen32, ms.score_columns = (gk.glfgen32_plain,
+                                         sk.score_columns_plain)
         try:
             want = (call_batch_packed(stacked, meta, dtabs, params),
                     call_batch(*cbs, dtabs, params))
         finally:
-            mg.glfgen32 = kernel
+            mg.glfgen32, ms.score_columns = kernels
         torch.cuda.synchronize()
         # the benchmark's tumor and normal differ in one baseQ bit, so
         # few sites or none emit: hold the emitted rows, then every
@@ -1402,7 +1578,8 @@ def bench_kernel_on_card(dev, torch) -> None:
               f"peak; bounds: f32 {r.bound_compute_s * 1e3:.5f} ms, bytes "
               f"{r.bound_hbm_s * 1e3:.5f} ms, launches "
               f"{r.bound_launch_s * 1e3:.4f} ms ({r.launches_per_step} "
-              f"device operations a step, glfgen32 twice among them, at "
+              f"device operations a step, glfgen32 twice and score_columns "
+              f"once among them, at "
               f"{r.launch_floor_s * 1e6:.2f} us an empty launch replayed "
               f"from a graph; queued on a stream, as the eager step's are, "
               f"{r.stream_launch_floor_s * 1e6:.2f} us, a launch bound of "
@@ -1440,7 +1617,8 @@ def random_packed_slab(B: int, D: int, seed: int):
 
 def graphed_against_eager(dev, torch, B: int = 8192) -> None:
     """Phase 17: the captured step against the eager step at every slab
-    depth, both priors, two input sets back to back, B columns a slab."""
+    depth, both priors, two input sets back to back, B columns a slab;
+    each key's device operations an eager step and its replay ms."""
     from somatic_sniper_tpu_torch.models.somatic import call_batch_packed
     from somatic_sniper_tpu_torch.models.step_graph import STEP_GRAPHS
     from somatic_sniper_tpu_torch.models.tables import (ModelParams,
@@ -1448,6 +1626,7 @@ def graphed_against_eager(dev, torch, B: int = 8192) -> None:
                                                         device_tables)
     from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
     from somatic_sniper_tpu_torch.parallel.slab import ALLOWED_D
+    from somatic_sniper_tpu_torch.utils.mfu import count_step_ops
 
     for joint in (False, True):
         params = ModelParams(use_joint_priors=joint, min_somatic_qual=0)
@@ -1467,7 +1646,8 @@ def graphed_against_eager(dev, torch, B: int = 8192) -> None:
                 gk.reset_launches()
                 n, rows = STEP_GRAPHS.run(stacked_h, meta_h, dtabs, params,
                                           dev)
-                if dict(gk.LAUNCHES) != eager or eager["glfgen32"] != 2:
+                if (dict(gk.LAUNCHES) != eager or eager["glfgen32"] != 2
+                        or eager["score_columns"] != 1):
                     raise AssertionError(
                         f"launches: eager {eager}, graphed {gk.LAUNCHES}")
                 if (n != n_e or rows.tobytes() != rows_e.tobytes()
@@ -1481,11 +1661,24 @@ def graphed_against_eager(dev, torch, B: int = 8192) -> None:
                    if k not in known}
             if len(new) != 1:
                 raise AssertionError(f"{len(new)} captures for one shape")
+            s = torch.from_numpy(stacked_h.view("int32")).to(dev)
+            m = torch.from_numpy(meta_h).to(dev)
+            ops = count_step_ops(
+                lambda: call_batch_packed(s, m, dtabs, params)) + sum(
+                    eager.values())
+            replay_ms, replay_q = step_times(
+                STEP_GRAPHS.step(B, D, dtabs, params, dev).replay, torch)
             print(f"  B={B} D={D:3d} joint={joint!s:5s}: captured in "
                   f"{1e3 * next(iter(new.values())):.1f} ms (two eager "
                   f"warm-up steps included); two input sets, {emitted} "
                   "rows, count and rows byte-equal to the eager step, "
-                  "glfgen32 twice each way", flush=True)
+                  f"glfgen32 twice and score_columns once each way; "
+                  f"{ops} device operations an eager step, replay "
+                  f"{replay_ms:.4f} ms (queued in {replay_q:.4f}); "
+                  f"torch-op step "
+                  f"recorded {TORCH_OP_STEP['slab_ops']} operations and "
+                  f"{TORCH_OP_STEP['slab_replay_ms']} ms at D = 48",
+                  flush=True)
     caps = STEP_GRAPHS.captures()
     print(f"  {len(caps)} captured steps in this process, the graph pool "
           f"holds {STEP_GRAPHS.pool_bytes(dev) / 2**20:.1f} MiB of device "
@@ -1553,6 +1746,7 @@ def graphed_batches_against_eager(keys, dev, torch) -> None:
                                                         device_tables)
     from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
     from somatic_sniper_tpu_torch.runner import MAX_EMIT
+    from somatic_sniper_tpu_torch.utils.mfu import count_step_ops
 
     t0 = time.perf_counter()
     params = ModelParams()
@@ -1590,13 +1784,18 @@ def graphed_batches_against_eager(keys, dev, torch) -> None:
         eager_ms, eager_q = step_times(
             lambda: spec.score(s, m, dtabs, params), torch)
         graphed_ms, graphed_q = step_times(step.replay, torch)
+        ops = (count_step_ops(lambda: spec.score(s, m, dtabs, params))
+               + sum(eager[1][2].values()))
         print(f"  {enc} {precision:5s} B={B:5d} D={D:4d}: count and rows "
               f"byte-equal to the eager step on two input sets ({eager[0][0]}"
               f", {eager[1][0]} rows), launches "
               f"{ {k: v for k, v in eager[0][2].items() if v} }; "
               f"capture {1e3 * graphs.captures()[key]:.1f} ms; eager "
               f"{eager_ms:.3f} ms (queued in {eager_q:.3f}), graphed "
-              f"{graphed_ms:.3f} ms (queued in {graphed_q:.3f}); pool "
+              f"{graphed_ms:.3f} ms (queued in {graphed_q:.3f}); {ops} "
+              f"device operations an eager step; torch-op step recorded "
+              f"replays "
+              f"{TORCH_OP_STEP['batch_replay_ms_' + precision]} ms; pool "
               f"{graphs.pool_bytes(dev) / 2**20:.1f} MiB", flush=True)
     print(f"  {len(graphs.captures())} captured batch steps, their pool "
           f"{graphs.pool_bytes(dev) / 2**20:.1f} MiB; phase 18 took "
@@ -1673,7 +1872,8 @@ def entry_on_card(torch) -> None:
     gk.reset_launches()
     got = fn(*args)
     torch.cuda.synchronize()
-    if gk.LAUNCHES["glfgen"] != 2 or sum(gk.LAUNCHES.values()) != 2:
+    if (gk.LAUNCHES["glfgen"] != 2 or gk.LAUNCHES["score_columns"] != 1
+            or sum(gk.LAUNCHES.values()) != 3):
         raise AssertionError(f"entry()'s step launched {gk.LAUNCHES}")
     fn_cpu, args_cpu = entry("cpu")
     want = fn_cpu(*args_cpu)
@@ -1688,7 +1888,7 @@ def entry_on_card(torch) -> None:
         raise AssertionError("entry() on the card differs from entry('cpu')"
                              f": {json.dumps(hist, sort_keys=True)}")
     print(f"  entry(): fn(*args) on {args[0].slots.device} launched glfgen "
-          f"twice; all {len(got._fields)} fields of "
+          f"twice and score_columns once; all {len(got._fields)} fields of "
           f"{got.emit.shape[0]} columns equal to entry('cpu')'s, "
           f"{int(got.emit.sum())} emitted", flush=True)
 
@@ -1742,7 +1942,8 @@ def records_and_prefilter(pair: Path, out_dir: Path, fast_lines: list[str],
               "output", flush=True)
         print_digest(body_lines(out))
         slabs = int(stats.get("slabs_dispatched", 0))
-        if launches["glfgen32"] != 2 * slabs or slabs == 0:
+        if (launches["glfgen32"] != 2 * slabs or slabs == 0
+                or launches["score_columns"] != slabs):
             raise AssertionError(f"{what}: {slabs} slabs launched {launches}")
         check_graphed(stats, what)
     scored = {k: int(stats.get(k, 0)) for k in
@@ -1759,7 +1960,8 @@ def records_and_prefilter(pair: Path, out_dir: Path, fast_lines: list[str],
           f"{scored['device_columns'] / n_cols:.4%}, host_deep share "
           f"{scored['host_deep_columns'] / n_cols:.4%}; slabs "
           f"{slabs} at depth {depths}, glfgen32 launches "
-          f"{launches['glfgen32']}", flush=True)
+          f"{launches['glfgen32']}, score_columns "
+          f"{launches['score_columns']}", flush=True)
     return launches
 
 
@@ -1837,7 +2039,8 @@ def split_prefilter_off(pair: Path, out_dir: Path, fast_lines: list[str],
                     if k.startswith(("batches_", "batch_captures"))}
     if (slabs == 0 or counts["slabs_split"] != slabs
             or counts["slabs_graphed"] != slabs or counts["slabs_unsplit"]
-            or launches["glfgen32"] != 2 * len(mesh) * slabs or batch_routes
+            or launches["glfgen32"] != 2 * len(mesh) * slabs
+            or launches["score_columns"] != len(mesh) * slabs or batch_routes
             or any(stats.get(k) for k in RETIRED_ROUTES)):
         raise AssertionError(f"split prefilter=False: {counts}, launches "
                              f"{launches}, batch routes {batch_routes}")
@@ -1847,7 +2050,8 @@ def split_prefilter_off(pair: Path, out_dir: Path, fast_lines: list[str],
                       for d in dict.fromkeys(mesh))
     print(f"  prefilter=False over [{names}]: wall {wall:.3f} s "
           f"({n_cols / wall:.0f} cols/s), bytes equal to the unsplit "
-          f"output; {counts}; glfgen32 {launches['glfgen32']}; device "
+          f"output; {counts}; glfgen32 {launches['glfgen32']}, "
+          f"score_columns {launches['score_columns']}; device "
           f"columns {int(stats.get('device_columns', 0))}; graph pool MiB "
           f"{pools}", flush=True)
     return launches, wall
@@ -2067,6 +2271,12 @@ def main() -> int:
                 errs[name] = max(errs[name], t[0])
     errs["accumulate"] = max(errs["accumulate"],
                              hazard_check(dtabs, dev, torch))
+    # the scoring step after glfgen: slab shapes with the dqstats, the
+    # batch path's main shape without
+    for (B, D), dq in [*((shape, True) for shape in SHAPES),
+                       ((65536, 40), False)]:
+        timed("score_columns", (B, D), score_case(B, D, dev, torch, dq),
+              torch, floor_ms)
     for D in EDGE_DEPTHS:
         cases = rank_cases(EDGE_B, D, dtabs, dev, torch)
         if D <= 255:
@@ -2124,6 +2334,7 @@ def main() -> int:
     # one fused launch a sample a slab, and no stand-alone kernel: no
     # slab waits on assembly10's error word
     if (slabs == 0 or launches["glfgen32"] != 2 * slabs
+            or launches["score_columns"] != slabs
             or launches["accumulate32"] or launches["assembly10"]):
         raise AssertionError(f"{slabs} slabs launched {launches}")
     check_graphed(stats, "phase 4")
@@ -2218,6 +2429,7 @@ def main() -> int:
         "glfgen32": (launches, shapes["slab"][0]),
         "glfgen": (launches_u32, shapes["u32"][0]),
         "glfgen16": (launches_u16, shapes["u16"][0]),
+        "score_columns": (launches, shapes["slab"][0]),
     }
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2231,15 +2443,15 @@ def main() -> int:
         if fused_as is None:
             extra["registers"] = {
                 k: v["registers"] for k, v in sorted(registers.items())
-                if k.startswith(f"{name}_kernel<")}
+                if k == f"{name}_kernel" or k.startswith(f"{name}_kernel<")}
         _, ms, pms, dms, pdms, bound, by = at_path[name, shape]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[fused_as or name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
             "bound_ms": bound, "bound_by": by,
-            # no one PyTorch call ranks reads within their classes or
-            # assembles the ten genotype likelihoods
+            # no one PyTorch call ranks reads within their classes,
+            # assembles the ten genotype likelihoods or scores a column
             "library_ms": None,
             "device_ms": dms, "plain_device_ms": pdms,
             "bound_share_of_device_ms": None if dms is None else bound / dms,
@@ -2260,9 +2472,11 @@ def main() -> int:
                           "split_2_streams": launches_split,
                           "split_2_graphed": launches_split_graphed,
                           "windows_prefilter_off_split": {
-                              "glfgen32": launches_nopf_split["glfgen32"]},
+                              k: launches_nopf_split[k]
+                              for k in ("glfgen32", "score_columns")},
                           "windows_prefilter_off": {
-                              "glfgen32": launches_nopf["glfgen32"]}}}),
+                              k: launches_nopf[k]
+                              for k in ("glfgen32", "score_columns")}}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -134,10 +134,40 @@ def glfgen_batch(cols: ColumnBatch, dtabs: DeviceTables,
     zero likelihoods and ``err`` is set, and the caller must read it
     (``runner.collect_pending`` raises the stand-alone ``assembly10``'s
     ValueError on it), so that a captured step never waits."""
-    if dtabs.precision != precision:
-        raise ValueError(f"{precision} glfgen given {dtabs.precision} tables")
+    _check_precision(dtabs, precision)
     if precision == "exact":
         return _glfgen_exact(cols, dtabs, cap_mapq)
+    lk, min_lk, rms, n, err = _glfgen_fast(cols, dtabs, cap_mapq)
+    # rms mapQ (reference sniper_maqcns.c:176)
+    rms_mapq = torch.floor(
+        torch.sqrt(rms.to(F32) / n.clamp(min=1).to(F32)) + 0.499
+    ).to(I32)
+    rms_mapq = torch.where(n > 0, rms_mapq, 0)
+    return GlfResult(lk=lk, min_lk=min_lk, depth=n.clamp(max=16777215),
+                     rms_mapq=rms_mapq, err=err)
+
+
+def glfgen_lk(cols: ColumnBatch, dtabs: DeviceTables, cap_mapq: int = 60,
+              precision: str = "fast"):
+    """What the scoring step reads of ``glfgen_batch``: (lk i32[B, 10],
+    the count of non-deleted reads i32[B] (unclamped in fast precision),
+    err as ``GlfResult.err``).  The rms mapQ, which no device step
+    reads, is left out, and with it a dozen operations a sample."""
+    _check_precision(dtabs, precision)
+    if precision == "exact":
+        g = _glfgen_exact(cols, dtabs, cap_mapq)
+        return g.lk, g.depth, g.err
+    lk, _, _, n, err = _glfgen_fast(cols, dtabs, cap_mapq)
+    return lk, n, err
+
+
+def _check_precision(dtabs: DeviceTables, precision: str) -> None:
+    if dtabs.precision != precision:
+        raise ValueError(f"{precision} glfgen given {dtabs.precision} tables")
+
+
+def _glfgen_fast(cols: ColumnBatch, dtabs: DeviceTables, cap_mapq: int):
+    """(lk, min_lk, rms sum, n, err) of the fast precision's kernels."""
     D = cols.slots.shape[1]
     w = dtabs.fk_weights
     enc = cols.encoding
@@ -172,13 +202,7 @@ def glfgen_batch(cols: ColumnBatch, dtabs: DeviceTables,
         # the step's results
         lk, min_lk, err = assembly10_flagged(esum, fsum, rescale_counts(c),
                                              n, coef_sub, lhet_sub)
-    # rms mapQ (reference sniper_maqcns.c:176)
-    rms_mapq = torch.floor(
-        torch.sqrt(rms.to(F32) / n.clamp(min=1).to(F32)) + 0.499
-    ).to(I32)
-    rms_mapq = torch.where(n > 0, rms_mapq, 0)
-    return GlfResult(lk=lk, min_lk=min_lk, depth=n.clamp(max=16777215),
-                     rms_mapq=rms_mapq, err=err)
+    return lk, min_lk, rms, n, err
 
 
 # -- exact precision ----------------------------------------------------------

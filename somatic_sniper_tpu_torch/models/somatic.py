@@ -1,13 +1,14 @@
 """Batched somatic calling in torch.
 
 Port of somatic_sniper_tpu/models/somatic.py (:62-124, :137-274,
-:279-385, :395-538): glfgen of both samples, consensus, the somatic
-score and the emission gates, the on-device dqstats (raw kept-only
-lanes only), and compaction of the emitted sites into i32 rows for the
-slab path (``call_batch_packed``) and the batch path
-(``call_batch_stacked``).  ``precision`` chooses the glfgen alone (f32
-kernels, or the reference's f64 arithmetic over full u32 words); every
-step after it is integer work and the same in both.
+:279-385, :395-538): glfgen of both samples, then consensus, the
+somatic score, the emission gates and the on-device dqstats (raw
+kept-only lanes only) in one ``ops.score_kernels.score_columns`` call,
+and compaction of the emitted sites into i32 rows for the slab path
+(``call_batch_packed``) and the batch path (``call_batch_stacked``).
+``precision`` chooses the glfgen alone (f32 kernels, or the reference's
+f64 arithmetic over full u32 words); every step after it is integer
+work and the same in both.
 """
 
 from __future__ import annotations
@@ -17,19 +18,15 @@ from typing import NamedTuple
 
 import torch
 
-from ..constants import GERMLINE, LOH, SOMATIC, UNKNOWN, WILDTYPE
-from .allele_util import (
-    genotype_is_proper_subset,
-    should_filter_as_gor,
-    should_filter_as_loh,
-)
-from .consensus import glf2cns_batch, make_qadd, somatic_score_batch
-from .fields import COMPACT_FIELDS  # noqa: F401  (re-exported)
-from .glfgen import ColumnBatch, glfgen_batch
+from ..ops.score_kernels import ScoredColumns, score_columns
+# parts of the plain version, re-exported under the names the JAX
+# package gives them here
+from ..ops.score_kernels import _device_dqstats, _mean_499  # noqa: F401
+from .fields import COMPACT_FIELDS
+from .glfgen import ColumnBatch, glfgen_lk
 from .tables import DeviceTables, ModelParams
 
 I32 = torch.int32
-F32 = torch.float32
 
 # the packed slab metadata carries depths and counts in bytes
 MAX_D = 255
@@ -86,58 +83,19 @@ def _no_error(device: torch.device) -> torch.Tensor:
     return torch.zeros((), dtype=I32, device=device)
 
 
-def _mean_499(s, o):
-    """Exact integer ``(int)(sum/occ + 0.499)`` (reference dqstats.c):
-    the f32 estimate is within +/-1 of the largest k with
-    ``(1000k - 499) * occ <= 1000 * sum``, and one integer-predicate
-    fixup each way makes it exact."""
-    o1 = o.clamp(min=1)
-    k0 = (s.to(F32) / o1.to(F32) + 0.499).to(I32)
-
-    def ok(k):
-        return (1000 * k - 499) * o1 <= 1000 * s
-
-    k = torch.where(ok(k0 + 1), k0 + 1, torch.where(ok(k0), k0, k0 - 1))
-    return torch.where(o > 0, k, 0)
-
-
-def _device_dqstats(slots, n_keep, rb4, wanted):
-    """[B, 18] int32 dqstats rows over raw kept-only lanes, bit-exact
-    with output.dqstats (reference dqstats.c:6-53), quirks included:
-    raw base codes (a '=' base is 0 and counts toward every base_occ)
-    and mean fields zeroed for un-wanted bases."""
-    B, D = slots.shape
-    s = slots
-    j_idx = torch.arange(D, device=s.device)[None, :]
-    valid = j_idx < n_keep[:, None]
-    mq = torch.where(valid, s & 0xFF, 0)
-    bq = torch.where(valid, (s >> 8) & 0xFF, 0)
-    b = (s >> 16) & 0xF
-    st = (s >> 20) & 1
-
-    def count(m):
-        return m.sum(dim=1, dtype=I32)
-
-    depth = n_keep
-    tot_mq = mq.sum(dim=1, dtype=I32)
-    is_ref = valid & (b == rb4[:, None])
-    not_ref = valid & (b != rb4[:, None])
-    dp4 = [count(is_ref & (st == 0)), count(is_ref & (st == 1)),
-           count(not_ref & (st == 0)), count(not_ref & (st == 1))]
-    occ, mean_bq, mean_mq = [], [], []
-    for j in range(4):
-        v = 1 << j
-        m = valid & ((b & v) == b)
-        o = count(m)
-        w = ((wanted & v) != 0).to(I32)
-        sb = torch.where(m, bq, 0).sum(dim=1, dtype=I32) * w
-        sm = torch.where(m, mq, 0).sum(dim=1, dtype=I32) * w
-        occ.append(o)
-        mean_bq.append(_mean_499(sb, o))
-        mean_mq.append(_mean_499(sm, o))
-    tot_mean = _mean_499(tot_mq, depth)
-    return torch.stack(mean_bq + mean_mq + occ + dp4 + [depth, tot_mean],
-                       dim=1)
+def _score(tumor: ColumnBatch, normal: ColumnBatch, dtabs: DeviceTables,
+           params: ModelParams, precision: str):
+    """(ScoredColumns, err) of a batch: glfgen of both samples, then
+    ``score_columns``, one kernel for everything after it."""
+    lk_t, n_t, err_t = glfgen_lk(tumor, dtabs, params.cap_mapq, precision)
+    lk_n, n_n, err_n = glfgen_lk(normal, dtabs, params.cap_mapq, precision)
+    err = None if err_t is None else torch.maximum(err_t, err_n)[0]
+    dq_lanes = ((tumor.slots, tumor.n_keep, normal.slots, normal.n_keep)
+                if tumor.encoding == "raw32" else None)
+    scored = score_columns(lk_t, lk_n, tumor.depth, normal.depth, n_t, n_n,
+                           tumor.ref16, dtabs.solo_prior, dtabs.joint_prior,
+                           dtabs.q_r_int, params, dq_lanes)
+    return scored, err
 
 
 def call_batch(tumor: ColumnBatch, normal: ColumnBatch, dtabs: DeviceTables,
@@ -148,69 +106,12 @@ def call_batch(tumor: ColumnBatch, normal: ColumnBatch, dtabs: DeviceTables,
     ``dtabs`` holds the tables of ``precision``.  A set ``err`` (a fast
     batch deeper than 255 with a count outside the tables,
     ``glfgen_batch``) means the result is not to be used: the caller
-    reads it and raises, as ``runner.collect_pending`` does."""
-    p = params
-    g_t = glfgen_batch(tumor, dtabs, p.cap_mapq, precision)
-    g_n = glfgen_batch(normal, dtabs, p.cap_mapq, precision)
-    t_b1, t_b2, t_s1, t_s2 = glf2cns_batch(g_t.lk, tumor.depth,
-                                           dtabs.q_r_int)
-    n_b1, n_b2, n_s1, n_s2 = glf2cns_batch(g_n.lk, normal.depth,
-                                           dtabs.q_r_int)
-    rb4 = tumor.ref16
-
-    # outer gate (reference somatic_sniper.c:127) + SNP gate (:156)
-    is_snp = ((g_t.depth > 0) & (g_n.depth > 0) & (rb4 != 15)
-              & (t_b1 != 15) & (n_b1 != 15) & (t_b1 != n_b1))
-    tumor_snp_q = torch.where(t_b2 == rb4, t_s1, t_s1 + t_s2).clamp(max=255)
-    normal_snp_q = torch.where(
-        (n_b1 != 15) & (n_b1 != rb4),
-        torch.where(n_b2 == rb4, n_s1, n_s1 + n_s2).clamp(max=255),
-        0,
-    )
-
-    score = somatic_score_batch(
-        g_t.lk, g_n.lk, rb4, dtabs.solo_prior, dtabs.joint_prior,
-        make_qadd(), p.use_joint_priors)
-    qps = score.q_posterior_sum
-
-    # joint-aware effective genotypes (reference somatic_sniper.c:216-223)
-    tumor_eff = torch.where(score.joint_tumor_gt != 0, score.joint_tumor_gt,
-                            t_b1)
-    normal_eff = torch.where(score.joint_normal_gt != 0,
-                             score.joint_normal_gt, n_b1)
-
-    loh = should_filter_as_loh(rb4, tumor_eff, normal_eff)
-    gor = should_filter_as_gor(rb4, tumor_eff, normal_eff)
-    emit = is_snp & (qps >= p.min_somatic_qual)
-    if not p.include_loh:
-        emit = emit & ~loh
-    if not p.include_gor:
-        emit = emit & ~gor
-
-    # statuses (reference somatic_sniper.c:241-261)
-    t_status = torch.where(
-        tumor_eff == normal_eff, GERMLINE,
-        torch.where(genotype_is_proper_subset(tumor_eff, normal_eff), LOH,
-                    torch.where(qps > 0, SOMATIC, UNKNOWN)),
-    ).to(I32)
-    n_status = torch.where(n_b1 == rb4, WILDTYPE, GERMLINE).to(I32)
-
-    err = None if g_t.err is None else torch.maximum(g_t.err, g_n.err)[0]
-    dq_t = dq_n = None
-    if tumor.encoding == "raw32":
-        wanted = rb4 | tumor_eff | normal_eff
-        dq_t = _device_dqstats(tumor.slots, tumor.n_keep, rb4, wanted)
-        dq_n = _device_dqstats(normal.slots, normal.n_keep, rb4, wanted)
-    return CallResult(
-        emit=emit, tumor_gt=t_b1, normal_gt=n_b1, tumor_cnsq=t_s1,
-        normal_cnsq=n_s1, tumor_vaq=tumor_snp_q, normal_vaq=normal_snp_q,
-        somatic_score=qps, joint_tumor_gt=score.joint_tumor_gt,
-        joint_normal_gt=score.joint_normal_gt,
-        joint_cnsq=score.joint_consensus_quality, tumor_status=t_status,
-        normal_status=n_status, tumor_eff_gt=tumor_eff,
-        normal_eff_gt=normal_eff, tumor_depth=g_t.depth,
-        normal_depth=g_n.depth, tumor_dq=dq_t, normal_dq=dq_n, err=err,
-    )
+    reads it and raises, as ``runner.collect_pending`` does.  The 16
+    fields are columns of one [B, 16] tensor (``ops.score_kernels``)."""
+    scored, err = _score(tumor, normal, dtabs, params, precision)
+    return CallResult(scored.emit, *scored.fields.unbind(1),
+                      tumor_dq=scored.tumor_dq, normal_dq=scored.normal_dq,
+                      err=err)
 
 
 def call_batch_compact(tumor: ColumnBatch, normal: ColumnBatch,
@@ -224,30 +125,36 @@ def call_batch_compact(tumor: ColumnBatch, normal: ColumnBatch,
     j < min(count, K), K = min(max_emit, B); the rest repeat column 0,
     like the JAX package's ``nonzero(size=K, fill_value=0)``.  The
     compaction is a scatter, so nothing waits on the device."""
-    return compact_rows(call_batch(tumor, normal, dtabs, params, precision),
-                        max_emit)
+    scored, err = _score(tumor, normal, dtabs, params, precision)
+    return _compact(scored, err, max_emit)
 
 
 def compact_rows(res: CallResult, max_emit: int) -> CompactResult:
     """The compaction of call_batch_compact over a CallResult already
     scored (by one call, or by parts gathered on one device)."""
-    B = res.emit.shape[0]
+    fields = torch.stack([getattr(res, f) for f in COMPACT_FIELDS], dim=1)
+    return _compact(ScoredColumns(res.emit, fields, res.tumor_dq,
+                                  res.normal_dq), res.err, max_emit)
+
+
+def _compact(scored: ScoredColumns, err, max_emit: int) -> CompactResult:
+    B = scored.emit.shape[0]
     K = min(max_emit, B)
-    dev = res.emit.device
-    emit_i = res.emit.to(I32)
+    dev = scored.emit.device
+    emit_i = scored.emit.to(I32)
     pos = torch.cumsum(emit_i, dim=0, dtype=I32) - emit_i
     # emitted column b goes to row pos[b] while it fits; the rest to a
     # dropped row K
-    dest = torch.where(res.emit & (pos < K), pos, K).long()
+    dest = torch.where(scored.emit & (pos < K), pos, K).long()
     idx = torch.zeros(K + 1, dtype=torch.long, device=dev)
     idx.scatter_(0, dest, torch.arange(B, device=dev))
     idx = idx[:K]
-    fields = torch.stack([getattr(res, f) for f in COMPACT_FIELDS], dim=1)
-    dq = ([res.tumor_dq[idx].long(), res.normal_dq[idx].long()]
-          if res.tumor_dq is not None else [])
-    rows = torch.cat([idx[:, None], fields[idx].long(), *dq], dim=1).to(I32)
-    err = _no_error(dev) if res.err is None else res.err
-    return CompactResult(count=emit_i.sum(dtype=I32), rows=rows, err=err)
+    dq = ([scored.tumor_dq[idx].long(), scored.normal_dq[idx].long()]
+          if scored.tumor_dq is not None else [])
+    rows = torch.cat([idx[:, None], scored.fields[idx].long(), *dq],
+                     dim=1).to(I32)
+    return CompactResult(count=emit_i.sum(dtype=I32), rows=rows,
+                         err=_no_error(dev) if err is None else err)
 
 
 def merge_compact(parts: list[CompactResult], part_b: int,

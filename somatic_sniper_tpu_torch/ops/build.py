@@ -196,6 +196,11 @@ SIGNATURES: dict[str, tuple[list, object]] = {
     # slots16, n_keep, weights, coef_sub, lhet_sub, lk, min_lk, B, D, NK,
     # stream
     "sniper_glfgen16": ([_P] * 7 + [_I, _I, _I, _P], _I),
+    # lk_t, lk_n, depth_t, depth_n, n_t, n_n, ref16, solo_prior,
+    # joint_prior, slots_t, slots_n, nk_t, nk_n, emit, fields, dq_t, dq_n,
+    # B, D, q_r_int, use_joint, min_somatic_qual, include_loh, include_gor,
+    # stream
+    "sniper_score_columns": ([_P] * 17 + [_I] * 7 + [_P], _I),
     # B, D
     "sniper_rank_scratch_ints": ([_I, _I], _LL),
     # blocks, threads, stream

@@ -38,9 +38,10 @@ MAX_RANK_D = 1 << 24  # depth bound of accumulate / accumulate16
 MAX_C_TOT = 256
 
 # kernel launches since the last reset_launches(); a wrapper adds one
-# only where it launches its CUDA kernel
+# only where it launches its CUDA kernel (score_columns: ops/score_kernels)
 LAUNCHES = {"accumulate32": 0, "accumulate": 0, "accumulate16": 0,
-            "assembly10": 0, "glfgen32": 0, "glfgen": 0, "glfgen16": 0}
+            "assembly10": 0, "glfgen32": 0, "glfgen": 0, "glfgen16": 0,
+            "score_columns": 0}
 
 _NEG_PHRED = torch.tensor(-4.343, dtype=F32)
 _BIG = torch.tensor(1e30, dtype=F32)

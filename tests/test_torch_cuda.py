@@ -21,9 +21,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_port_util import (filtered_lines,  # noqa: E402
-                                   hazard_column, random_raw32, random_slab,
-                                   random_stacked, random_u32, to_packed16)
+from tests.torch_port_util import (SCORE_PAD,  # noqa: E402
+                                   filtered_lines, hazard_column,
+                                   random_raw32, random_slab, random_stacked,
+                                   random_u32, score_inputs, to_packed16)
 
 from somatic_sniper_tpu_torch.models import somatic as ts  # noqa: E402
 from somatic_sniper_tpu_torch.models import tables as T  # noqa: E402
@@ -405,24 +406,26 @@ def test_split_over_two_streams_equals_unsplit(dev, encoding, B, D):
             assert (a is None) == (b is None), name
             if a is not None:
                 assert a.device == dev and torch.equal(a, b), name
-    assert sum(gk.LAUNCHES.values()) - before == 8
+    # glfgen twice and score_columns once a part, two parts a call
+    assert sum(gk.LAUNCHES.values()) - before == 12
     assert int(want.emit.sum()) > 0
 
 
 @pytest.mark.parametrize("B,D", [(8192, 48), (2048, 64)])
 def test_bench_kernel_on_card(dev, B, D):
     """``utils.mfu.bench_kernel`` with no device named runs on the card:
-    every step, replayed or eager, launches glfgen32 twice and no
-    stand-alone kernel (a capture's warm-up counts none), and the launch
-    floor it measures gives a launch bound."""
+    every step, replayed or eager, launches glfgen32 twice, score_columns
+    once and no stand-alone kernel (a capture's warm-up counts none), and
+    the launch floor it measures gives a launch bound."""
     from somatic_sniper_tpu_torch.utils import mfu
 
     gk.reset_launches()
     r = mfu.bench_kernel(B=B, D=D, iters=8)
     assert r.steps_run >= 2 + 2 * (2 + 8)
     assert gk.LAUNCHES["glfgen32"] == 2 * r.steps_run
-    assert sum(gk.LAUNCHES.values()) == 2 * r.steps_run
-    assert r.kernel_launches == {"glfgen32": 2}
+    assert gk.LAUNCHES["score_columns"] == r.steps_run
+    assert sum(gk.LAUNCHES.values()) == 3 * r.steps_run
+    assert r.kernel_launches == {"glfgen32": 2, "score_columns": 1}
     assert r.cols_per_sec > 0 and 0 < r.est_mfu < 1
     assert r.eager_slab_s > 0 and r.eager_host_queue_s > 0
     assert r.graph_run_s > r.measured_slab_s > 0
@@ -471,7 +474,8 @@ def test_entry_on_card_matches_cpu(dev):
     gk.reset_launches()
     got = fn(*args)
     torch.cuda.synchronize()
-    assert gk.LAUNCHES["glfgen"] == 2 and sum(gk.LAUNCHES.values()) == 2
+    assert gk.LAUNCHES["glfgen"] == 2 and gk.LAUNCHES["score_columns"] == 1
+    assert sum(gk.LAUNCHES.values()) == 3
     fn_cpu, args_cpu = entry("cpu")
     want = fn_cpu(*args_cpu)
     for name, a, b in zip(got._fields, got, want):
@@ -549,6 +553,7 @@ def test_graphed_step_equals_eager_on_card(dev, D, use_joint):
         assert {k: gk.LAUNCHES[k] - before[k] for k in before} == \
             eager_launches
         assert eager_launches["glfgen32"] == 2
+        assert eager_launches["score_columns"] == 1
         assert n == n_e > 0
         assert rows.dtype == rows_e.dtype and np.array_equal(rows, rows_e)
         answers.append(rows)
@@ -688,7 +693,8 @@ def test_graphed_batch_step_equals_eager_on_card(dev, monkeypatch, packed16,
     assert len(set(answers)) == 3
     fused = {(False, "fast"): "glfgen", (True, "fast"): "glfgen16"}
     assert eager_launches[0] == {
-        k: 2 if k == fused.get((packed16, precision)) else 0
+        k: 2 if k == fused.get((packed16, precision))
+        else 1 if k == "score_columns" else 0
         for k in gk.LAUNCHES}
     assert len(graphs.captures()) == 1
 
@@ -840,3 +846,141 @@ def test_deep_fast_batch_error_word_raises_at_collect_on_card(dev,
     with pytest.raises(ValueError, match=message):
         runner.collect_pending(pending, None, None, None, dtabs, dev)
     torch.cuda.synchronize()  # the card is still usable
+
+
+# -- score_columns: the scoring step after glfgen in one kernel -------------
+
+def _score_args(cols, ref16, dtabs, params, dq, dev):
+    """score_columns' arguments on the card from ``score_inputs``."""
+    t = {w: {k: torch.from_numpy(v.view(np.int32) if v.dtype == np.uint32
+                                 else v).to(dev) for k, v in c.items()}
+         for w, c in cols.items()}
+    tu, no = t["tumor"], t["normal"]
+    lanes = (tu["slots"], tu["nk"], no["slots"], no["nk"]) if dq else None
+    return (tu["lk"], no["lk"], tu["depth"], no["depth"], tu["n"], no["n"],
+            torch.from_numpy(ref16).to(dev), dtabs.solo_prior,
+            dtabs.joint_prior, dtabs.q_r_int, params, lanes)
+
+
+@pytest.mark.parametrize("use_joint", [False, True])
+@pytest.mark.parametrize("D", [1, 48, 255])
+@pytest.mark.parametrize("B", [1, 33, 8192, 65536])
+def test_score_columns_matches_plain_on_card(dev, B, D, use_joint):
+    """The kernel against score_columns_plain on the same card inputs,
+    bit for bit: emit, the 16 fields and both dqstats rows, with the
+    dqstats and without, every gate flag each way, tie-heavy and full
+    likelihood ranges; two launches give the same bits, and the padding
+    columns never emit."""
+    from somatic_sniper_tpu_torch.ops import score_kernels as sk
+
+    dtabs = device_tables(
+        T.build_tables(T.ModelParams(use_joint_priors=use_joint)), dev)
+    for hi in (4, 256):
+        cols, ref16 = score_inputs(B, D, B + D + hi, hi)
+        for loh, gor in ((True, True), (False, True), (True, False),
+                         (False, False)):
+            params = T.ModelParams(use_joint_priors=use_joint,
+                                   min_somatic_qual=15, include_loh=loh,
+                                   include_gor=gor)
+            for dq in (True, False):
+                args = _score_args(cols, ref16, dtabs, params, dq, dev)
+                before = gk.LAUNCHES["score_columns"]
+                got, again = sk.score_columns(*args), sk.score_columns(*args)
+                want = sk.score_columns_plain(*args)
+                torch.cuda.synchronize()
+                assert gk.LAUNCHES["score_columns"] == before + 2
+                for name, a, a2, b in zip(got._fields, got, again, want):
+                    if b is None:
+                        assert a is None and a2 is None, name
+                        continue
+                    assert a.dtype == b.dtype and a.shape == b.shape, name
+                    assert torch.equal(a, b), (name, hi, loh, gor, dq)
+                    assert torch.equal(a, a2), name
+                if B >= 16:
+                    assert not got.emit[-SCORE_PAD:].any()
+
+
+def test_score_columns_empty_batch_on_card(dev):
+    """B == 0 launches nothing and returns empty outputs."""
+    from somatic_sniper_tpu_torch.ops import score_kernels as sk
+
+    dtabs = device_tables(T.build_tables(T.ModelParams()), dev)
+    cols, ref16 = score_inputs(16, 8, 1, 10)
+    cols = {w: {k: v[:0] for k, v in c.items()} for w, c in cols.items()}
+    before = dict(gk.LAUNCHES)
+    got = sk.score_columns(*_score_args(cols, ref16[:0], dtabs,
+                                        T.ModelParams(), True, dev))
+    assert dict(gk.LAUNCHES) == before
+    assert got.fields.shape == (0, 16) and got.tumor_dq.shape == (0, 18)
+
+
+@pytest.mark.parametrize("use_joint", [False, True])
+@pytest.mark.parametrize("step", ["packed", "u32-fast", "u16-fast",
+                                  "u32-exact"])
+def test_step_rows_kernel_equal_plain_on_card(dev, monkeypatch, step,
+                                              use_joint):
+    """call_batch_packed and call_batch_stacked (both encodings, both
+    precisions) through score_columns against the same step with its
+    plain version in its place: count and rows byte-equal, and the full
+    CallResult of a batch field for field."""
+    from somatic_sniper_tpu_torch.ops import score_kernels as sk
+
+    enc, precision = (step.split("-") + ["fast"])[:2]
+    params = T.ModelParams(use_joint_priors=use_joint, min_somatic_qual=0)
+    dtabs = device_tables(T.build_tables(params), dev, precision)
+    if enc == "packed":
+        B, D = 8192, 48
+        stacked, meta = random_slab(B, D, 11 + use_joint)
+        s = torch.from_numpy(stacked.view(np.int32)).to(dev)
+
+        def run():
+            return (ts.call_batch_packed(s, m, dtabs, params),)
+    else:
+        B, D = 4096, 40
+        packed16 = enc == "u16"
+        stacked, meta = random_stacked(B, D, 13 + use_joint, packed16)
+        s = torch.from_numpy(stacked if packed16
+                             else stacked.view(np.int32)).to(dev)
+
+        def run():
+            return tuple(ts.call_batch_stacked(
+                s, m, dtabs, params, packed16=packed16, max_emit=B,
+                compact=compact, precision=precision)
+                for compact in (True, False))
+    m = torch.from_numpy(meta).to(dev)
+    gk.reset_launches()
+    got = run()
+    assert gk.LAUNCHES["score_columns"] == len(got)
+    monkeypatch.setattr(ts, "score_columns", sk.score_columns_plain)
+    want = run()
+    torch.cuda.synchronize()
+    n = int(got[0].count)
+    assert n == int(want[0].count) > 0
+    assert (got[0].rows[:n].cpu().numpy().tobytes()
+            == want[0].rows[:n].cpu().numpy().tobytes())
+    if len(got) > 1:
+        for name, a, b in zip(got[1]._fields, got[1], want[1]):
+            assert (a is None) == (b is None), name
+            if a is not None:
+                assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("use_joint", [False, True])
+def test_eager_slab_step_device_operations_on_card(dev, use_joint):
+    """An eager slab step at (8192, 48) queues under 40 device operations
+    (torch ops that compute, and the kernels: glfgen32 twice and
+    score_columns once), where the torch ops of consensus, score, gates
+    and dqstats queued ~1,230 (~2,500 with joint priors)."""
+    from somatic_sniper_tpu_torch.utils.mfu import count_step_ops
+
+    params = T.ModelParams(use_joint_priors=use_joint)
+    dtabs = device_tables(T.build_tables(params), dev)
+    _, _, s, m = _card_slab(8192, 48, 5, dev)
+    ts.call_batch_packed(s, m, dtabs, params)  # warm: the table cuts
+    torch.cuda.synchronize()
+    before = dict(gk.LAUNCHES)
+    n_ops = count_step_ops(lambda: ts.call_batch_packed(s, m, dtabs, params))
+    launched = {k: gk.LAUNCHES[k] - before[k] for k in before
+                if gk.LAUNCHES[k] != before[k]}
+    assert launched == {"glfgen32": 2, "score_columns": 1}
+    assert n_ops + sum(launched.values()) < 40

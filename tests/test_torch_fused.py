@@ -197,7 +197,7 @@ def test_fused_wrappers_check_inputs(encoding):
 def test_launch_counters_have_the_fused_keys():
     assert set(gk.LAUNCHES) == {"accumulate32", "accumulate", "accumulate16",
                                 "assembly10", "glfgen32", "glfgen",
-                                "glfgen16"}
+                                "glfgen16", "score_columns"}
     jcb, tcb = _batches("u32", 16, 8, seed=1)
     tg.glfgen_batch(tcb, device_tables(T.build_tables(T.ModelParams()), CPU))
     assert set(gk.LAUNCHES.values()) == {0}  # the CPU launches nothing
@@ -241,7 +241,7 @@ def _c_functions():
 
 def test_every_c_function_is_bound():
     assert set(_c_functions()) == set(build.SIGNATURES)
-    assert len(build.SIGNATURES) == 10
+    assert len(build.SIGNATURES) == 11
 
 
 @pytest.mark.parametrize("name", sorted(build.SIGNATURES))

@@ -162,7 +162,8 @@ def test_wrappers_check_inputs():
                       torch.zeros((17, 17)))
     assert gk.LAUNCHES == {"accumulate32": 0, "accumulate": 0,
                            "accumulate16": 0, "assembly10": 0,
-                           "glfgen32": 0, "glfgen": 0, "glfgen16": 0}
+                           "glfgen32": 0, "glfgen": 0, "glfgen16": 0,
+                           "score_columns": 0}
 
 
 # -- accumulate (full u32 slots, deletions among the lanes) ---------------

@@ -149,6 +149,50 @@ def random_stacked(B: int, D: int, seed: int, packed16: bool):
     return np.stack([t16, n16]), meta.astype(np.int32)
 
 
+SCORE_PAD = 5  # padding columns at the end of a score_inputs batch
+
+
+def score_inputs(B: int, D: int, seed: int, hi: int):
+    """The inputs of ``ops.score_kernels.score_columns`` for B columns:
+    ({"tumor": ..., "normal": ...} of numpy arrays ``lk`` [B, 10] in
+    [0, hi) (a small hi forces ties in every scan), raw kept-only
+    ``slots`` uint32 [B, D] with their ``nk``, the raw ``depth`` and
+    glfgen's count ``n`` (= nk), and ``ref16`` [B]).  Where B >= 16 the
+    first rows tie by construction (all equal; two and three equal
+    minima), columns 4, 5 and 6 hold n_keep 0, 1 and D, ref16 is 15 on
+    column 7 and 0 on column 8, and the last SCORE_PAD columns are
+    padding (everything 0, as the batch path pads)."""
+    rng = np.random.default_rng(seed)
+    special = B >= 16
+    out = {}
+    ref16 = None
+    for i, who in enumerate(("tumor", "normal")):
+        slots, nk, depth, r = random_raw32(B, D, seed + 1000 * i)
+        ref16 = r if ref16 is None else ref16
+        lk = rng.integers(0, hi, (B, 10)).astype(np.int32)
+        if special:
+            lk[0] = 0
+            lk[1] = 7
+            lk[2] = [9, 3, 9, 3, 9, 9, 3, 9, 9, 9]
+            lk[3] = [4, 4, 1, 1, 4, 4, 4, 1, 4, 4]
+            # D fresh kept words on column 6 (bits below 21: no deletion)
+            slots[4] = 0
+            slots[5, 1:] = 0
+            slots[6] = rng.integers(0, 1 << 21, D).astype(np.uint32)
+            nk[4], nk[5], nk[6] = 0, 1, D
+            depth[4], depth[5], depth[6] = 0, 1, D
+        n = nk.copy()
+        if special:
+            slots[-SCORE_PAD:], nk[-SCORE_PAD:], depth[-SCORE_PAD:] = 0, 0, 0
+            lk[-SCORE_PAD:], n[-SCORE_PAD:] = 0, 0
+        out[who] = dict(slots=slots, nk=nk, depth=depth, lk=lk, n=n)
+    ref16 = ref16.copy()
+    if special:
+        ref16[7], ref16[8] = 15, 0
+        ref16[-SCORE_PAD:] = 0
+    return out, ref16
+
+
 def eager_stand_in(step, stream, pool):
     """The eager step in place of a CUDA graph (models/step_graph's
     ``capture`` on the CPU): its outputs, and a replay that scores the
