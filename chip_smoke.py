@@ -2,10 +2,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cards   # the split over two cards or more
+    python3 chip_smoke.py --score-sweep  # score_columns at small slabs
 
 The second form needs two GPUs or more and runs only the split over
 distinct cards (phase 12 over ``[cuda:0, cuda:1]`` and every card, and
 the 10 Mb pair with ``prefilter=False`` whole and split); see ``cards``.
+The third times ``score_columns`` alone over slab sizes and depths that
+``SNIPER_SLAB_B`` / ``SNIPER_SLAB_D`` reach; see ``score_sweep``.
 
 Phases (each raises on failure, so a failed phase exits non-zero and the
 closing ``{"ok": true, ...}`` line is never printed):
@@ -31,7 +34,9 @@ closing ``{"ok": true, ...}`` line is never printed):
    the same bits; and ``score_columns`` (consensus, score, gates,
    statuses and dqstats in one launch) against ``score_columns_plain``
    bit for bit, both priors, every gate flag, with the dqstats at the
-   slab shapes and without at (65536, 40), timed;
+   slab shapes and without at (65536, 40), timed; at (8192, 48) and
+   (65536, 40) also timed with joint priors, each beside its byte and
+   integer-issue bounds (``score_bounds``);
 4. the main path at a size users run: the port's CLI on a simulated
    10 Mb tumor/normal pair at 30x (windowed driver), fast precision on
    the card against exact precision (native host scoring) under the fast
@@ -57,10 +62,12 @@ closing ``{"ok": true, ...}`` line is never printed):
    timed at the shape that carried the most columns: the times of the
    ``kernels`` line, each beside its bound (the least time the card
    could take: the bytes the inputs need over the memory rate, or the
-   operations over the f32 rate, whichever is larger); ``score_columns``
-   at every shape of each path, with the dqstats on the slab path's.  A
-   kernel faster than its bound is a fault of the count and fails the
-   run;
+   operations over the f32 rate, whichever is larger; for
+   ``score_columns`` its integer operations over the INT32 rate);
+   ``score_columns`` at every shape of each path, with the dqstats on
+   the slab path's, and at each path's main shape with joint priors
+   too.  A kernel faster than its bound is a fault of the count and
+   fails the run;
 9. ``--jobs 1``, ``2`` and ``4`` through the port's CLI, each in a child
    process, on the 10 Mb pair, fast on the card: output bytes equal to
    phase 4's; wall and cols/s of each beside the single process, every
@@ -146,6 +153,7 @@ import sys
 sys.modules["jax"] = None  # any import of JAX from here on raises
 sys.modules["somatic_sniper_tpu"] = None  # and any of the JAX package
 
+import functools  # noqa: E402
 import hashlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -176,6 +184,31 @@ EDGE_B = 1001
 # the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# the H100 SXM's SMs and the INT32 lanes of each (64 integer operations an
+# SM a clock: CUDA C++ Programming Guide, arithmetic instructions, cc 9.0)
+H100_SMS = 132
+INT32_LANES_PER_SM = 64
+# Integer operations of score_columns.cu, counted from its source after
+# unrolling, as the fewest Hopper instructions each needs: an add of up to
+# three terms, a min, max or abs, a compare (with the predicates it
+# combines), a select, a shift or mask, a multiply(-add) is one, a clamp
+# two; loads, stores, addresses and loop counters are left out.  qadd:
+# y - x, the clamp, abs, min(d, 0), three compares, the sum.  glf2cns, a
+# sample: six het penalties, the three scans (9 x 3, 10 x 4, 10 x 4), the
+# gaps, caps, bases and the n == 0 guard.  solo: the prior adds and post
+# caps of both samples (60) and the fold's sums (10), beside its 30 qAdds.
+# joint: 100 x (sum, cap, compare, the select of the best and the select
+# of its flat index 10 i + j, both constants after unrolling), the index
+# split into i and j (3), 10 x (sum, cap, subtract, compare, select), the
+# two bases and the cap, beside its 120 qAdds.  gates: the depth caps, the SNP gate, the VAQs, the effective
+# genotypes, LOH/GOR, emit and the statuses.  dq_lane, a lane: the
+# wrapping walk (3), four field extracts, the mapQ sum, the dp4 byte (5),
+# the base bytes (7) and their sum, the two 16-bit spreads (4) and four
+# multiply-adds.  dq_row, a sample's row: the skewed start, a chunk's
+# unpacking into the totals (40), the integer part of nine _mean_499
+# (126) and the wanted masks (16).
+SCORE_INT_OPS = {"qadd": 9, "glf2cns": 126, "solo": 70, "joint": 558,
+                 "gates": 38, "dq_lane": 29, "dq_row": 183}
 # f32 operations a column of assembly10 takes (counted from its plain
 # version: ten genotype sums, the two scans, the quantization)
 ASSEMBLY_FLOPS_PER_COLUMN = 220
@@ -419,21 +452,53 @@ def fused_bound(lanes: int, lane_bytes: int, B: int, words_in: int,
                     3 * taken + ASSEMBLY_FLOPS_PER_COLUMN * B)
 
 
-def score_bound(B: int, lanes: int, dq: bool) -> tuple[float, str]:
-    """Bound of score_columns on B columns: 2 x 10 likelihoods, the two
-    raw depths, glfgen's two counts and ref16 in (25 words a column),
-    the emit byte and 16 fields out, and the 640-byte solo prior (the
-    joint prior's 6.4 KB in joint mode, which the timed calls do not
-    run); with the dqstats also both samples' n_keep and their
-    ``lanes`` occupied lanes in, 36 words a column out.  Operations:
-    the two f32 ones of each of the 18 means a column; the integer work
-    (scans, qAdd folds, counts) has no published peak and is left out."""
-    n_bytes = 4 * B * 25 + B * (1 + 64) + 640
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+
+
+def score_int_ops(B: int, lanes: int, dq: bool, joint: bool) -> int:
+    """Integer operations score_columns needs on B columns (``lanes``
+    occupied kept lanes in all, with the dqstats), counted from
+    score_columns.cu by SCORE_INT_OPS' rules."""
+    ops = SCORE_INT_OPS
+    q = ops["qadd"]
+    per_col = (2 * ops["glf2cns"] + ops["gates"]
+               + (ops["joint"] + 120 * q if joint else ops["solo"] + 30 * q))
+    if dq:
+        per_col += 2 * ops["dq_row"]
+    return B * per_col + (ops["dq_lane"] * lanes if dq else 0)
+
+
+def score_bounds(B: int, lanes: int, dq: bool, joint: bool) -> dict:
+    """Bounds of score_columns on B columns.  Bytes: 2 x 10 likelihoods,
+    the two raw depths, glfgen's two counts and ref16 in (25 words a
+    column), the emit byte and 16 fields out, and the prior (640 bytes
+    solo, 6.4 KB joint); with the dqstats also both samples' n_keep and
+    their ``lanes`` occupied lanes in, 36 words a column out; over the
+    memory rate.  Integer issue: score_int_ops over 132 SMs x 64 INT32
+    lanes x the maximum SM clock.  (The two f32 operations of each of the
+    18 means a column are far below both.)  Returns both, the larger
+    as ``bound_ms`` with ``bound_by``."""
+    n_bytes = 4 * B * 25 + B * (1 + 64) + 4 * (1600 if joint else 160)
     flops = 0
     if dq:
         n_bytes += 4 * B * 2 + 4 * lanes + 4 * B * 36
         flops = 2 * 18 * B
-    return bound_ms(n_bytes, flops)
+    by_bytes, _ = bound_ms(n_bytes, flops)
+    int_ops = score_int_ops(B, lanes, dq, joint)
+    by_int = int_ops / (H100_SMS * INT32_LANES_PER_SM * max_sm_clock_hz()) \
+        * 1e3
+    bound, by = (by_bytes, "bytes") if by_bytes >= by_int \
+        else (by_int, "operations")
+    return {"bound_ms": bound, "bound_by": by, "byte_bound_ms": by_bytes,
+            "bytes": n_bytes, "int_bound_ms": by_int, "int_ops": int_ops,
+            "max_sm_mhz": max_sm_clock_hz() / 1e6}
 
 
 def score_args(B: int, D: int, seed: int, hi: int, dev, torch):
@@ -457,47 +522,65 @@ def score_args(B: int, D: int, seed: int, hi: int, dev, torch):
     return (*on[:7], tuple(on[7:]))
 
 
-def score_case(B: int, D: int, dev, torch, dq: bool) -> "Case":
+def score_case(B: int, D: int, dev, torch, dq: bool, joint: bool = False,
+               check: bool = True) -> "Case":
     """score_columns against score_columns_plain on the card at (B, D),
     bit for bit (emit, the 16 fields and, with ``dq``, both dqstats
-    rows): both priors, every gate flag each way, tie-heavy and full
-    likelihood ranges, two launches the same bits.  Timed with the
-    default parameters (no joint priors), on the full range."""
+    rows).  With ``check``: both priors, every gate flag each way,
+    tie-heavy and full likelihood ranges, two launches the same bits.
+    Timed with the default parameters, joint priors if ``joint``, on the
+    full range, whose result is held to the plain version too."""
     from somatic_sniper_tpu_torch.models.tables import (ModelParams,
                                                         build_tables,
                                                         device_tables)
     from somatic_sniper_tpu_torch.ops import score_kernels as sk
 
-    for joint in (False, True):
+    def equal(got, again, want, what):
+        torch.cuda.synchronize()
+        for name, a, a2, b in zip(got._fields, got, again, want):
+            if (a is None) != (b is None) or (a is not None and not (
+                    torch.equal(a, b) and torch.equal(a, a2))):
+                raise AssertionError(
+                    f"score_columns {name} differs from its plain version "
+                    f"at {(B, D)}: {what}, dq {dq}")
+
+    for use_joint in ((False, True) if check else ()):
         dtabs = device_tables(build_tables(ModelParams(
-            use_joint_priors=joint)), dev)
+            use_joint_priors=use_joint)), dev)
         for hi in (4, 256):
             *cols, lanes = score_args(B, D, B + D + hi, hi, dev, torch)
             for loh, gor in ((True, True), (False, True), (True, False),
                              (False, False)):
-                params = ModelParams(use_joint_priors=joint,
+                params = ModelParams(use_joint_priors=use_joint,
                                      include_loh=loh, include_gor=gor)
                 args = (*cols, dtabs.solo_prior, dtabs.joint_prior,
                         dtabs.q_r_int, params, lanes if dq else None)
-                got, again = sk.score_columns(*args), sk.score_columns(*args)
-                want = sk.score_columns_plain(*args)
-                torch.cuda.synchronize()
-                for name, a, a2, b in zip(got._fields, got, again, want):
-                    if (a is None) != (b is None) or (a is not None and not (
-                            torch.equal(a, b) and torch.equal(a, a2))):
-                        raise AssertionError(
-                            f"score_columns {name} differs from its plain "
-                            f"version at {(B, D)}: joint {joint}, hi {hi}, "
-                            f"include_loh {loh}, include_gor {gor}, dq {dq}")
-    params = ModelParams()
+                equal(sk.score_columns(*args), sk.score_columns(*args),
+                      sk.score_columns_plain(*args),
+                      f"joint {use_joint}, hi {hi}, include_loh {loh}, "
+                      f"include_gor {gor}")
+    params = ModelParams(use_joint_priors=joint)
     dtabs = device_tables(build_tables(params), dev)
     *cols, lanes = score_args(B, D, B + D, 256, dev, torch)
     args = (*cols, dtabs.solo_prior, dtabs.joint_prior, dtabs.q_r_int,
             params, lanes if dq else None)
-    occupied = int(lanes[1].clamp(max=D).sum() + lanes[3].clamp(max=D).sum())
+    equal(sk.score_columns(*args), sk.score_columns(*args),
+          sk.score_columns_plain(*args), f"timed inputs, joint {joint}")
+    occupied = int(lanes[1].clamp(min=0, max=D).sum()
+                   + lanes[3].clamp(min=0, max=D).sum())
+    bounds = score_bounds(B, occupied, dq, joint)
     return Case(0.0, lambda: sk.score_columns(*args),
                 lambda: sk.score_columns_plain(*args),
-                score_bound(B, occupied, dq))
+                (bounds["bound_ms"], bounds["bound_by"]), detail=bounds)
+
+
+def score_joint(B: int, D: int, dq: bool, dev, torch,
+                floor_ms: float) -> tuple:
+    """score_columns at (B, D) with joint priors (its <1, dq> instance),
+    held to its plain version and timed: timed(...)'s tuple."""
+    return timed("score_columns joint", (B, D),
+                 score_case(B, D, dev, torch, dq, joint=True, check=False),
+                 torch, floor_ms)
 
 
 class Case(NamedTuple):
@@ -510,6 +593,9 @@ class Case(NamedTuple):
     # the same launch without the wrapper's wait for the device, where
     # the wrapper has one: what the device time is taken from
     launch: Callable | None = None
+    # more numbers of the case for the kernels line (score_columns: its
+    # byte and integer-issue bounds)
+    detail: dict | None = None
 
 
 def check_fused(name: str, got, again, want, shape, torch) -> None:
@@ -685,18 +771,25 @@ def rank_cases(B: int, D: int, dtabs, dev, torch,
 
 def timed(name: str, shape, case: Case, torch, floor_ms: float) -> tuple:
     """(max_abs_err, ms, plain_ms, device_ms, plain_device_ms, bound_ms,
-    bound_by) of one case, printed beside the launch floor ``floor_ms``.
+    bound_by, detail) of one case, printed beside the launch floor
+    ``floor_ms``.
     A kernel that beats its bound shows a fault of the count: that
     raises."""
-    err, kern, plain, (bound, by), launch = case
+    err, kern, plain, (bound, by), launch, detail = case
     t = (err, call_ms(kern, torch), call_ms(plain, torch),
-         queued_ms(launch or kern, torch), queued_ms(plain, torch), bound, by)
+         queued_ms(launch or kern, torch), queued_ms(plain, torch), bound, by,
+         detail)
     share = "" if t[3] is None else f" ({100 * bound / t[3]:.1f}% of it)"
     print(f"  {name:13s} B={shape[0]:5d} D={shape[1]:5d}  max_abs_err={err:.3g}"
           f"  per call: kernel {t[1]:.4f} ms, plain {t[2]:.4f} ms; "
           f"device: kernel {fmt_ms(t[3])}, plain {fmt_ms(t[4])}; "
           f"bound {bound:.5f} ms by {by}{share}; launch floor "
           f"{fmt_ms(floor_ms)}", flush=True)
+    if detail is not None:
+        print(f"    bounds: bytes {detail['byte_bound_ms']:.5f} ms "
+              f"({detail['bytes']} B), integer issue "
+              f"{detail['int_bound_ms']:.5f} ms ({detail['int_ops']} "
+              f"operations at {detail['max_sm_mhz']:.0f} MHz)", flush=True)
     if bound > min(x for x in (t[1], t[3]) if x is not None):
         raise AssertionError(
             f"{name} at {shape} ran faster than its bound of {bound} ms: "
@@ -748,7 +841,8 @@ def kernels_at_path_shapes(shapes: dict, dtabs, dev, torch,
     path ran (random lanes), timed at the path's main shape (the first:
     the depth that carried the most columns); score_columns at each
     family's shapes (a u16 shape overwrites an equal u32 one: both
-    score without dqstats).  ``shapes`` maps a family
+    score without dqstats), at the main shape also with joint priors
+    (named ``score_columns/joint``).  ``shapes`` maps a family
     ("slab", "u32", "u16") to its shapes.  Returns {(name, shape):
     (max_abs_err, ms, plain_ms, device_ms, plain_device_ms, bound_ms,
     bound_by) or (max_abs_err,)}."""
@@ -760,8 +854,8 @@ def kernels_at_path_shapes(shapes: dict, dtabs, dev, torch,
             cases = (slab_cases(B, D, dtabs, dev, torch) if fam == "slab"
                      else rank_cases(B, D, dtabs, dev, torch, family[fam]))
             # the dqstats ride only on the slab's raw lanes
-            cases["score_columns"] = score_case(B, D, dev, torch,
-                                                dq=fam == "slab")
+            dq = fam == "slab"
+            cases["score_columns"] = score_case(B, D, dev, torch, dq=dq)
             for name, case in cases.items():
                 if i == 0:
                     out[name, (B, D)] = timed(name, (B, D), case, torch,
@@ -770,6 +864,9 @@ def kernels_at_path_shapes(shapes: dict, dtabs, dev, torch,
                     out[name, (B, D)] = (case.err,)
                     print(f"  {name:13s} B={B:5d} D={D:5d}  equal, "
                           f"max_abs_err={case.err:.3g}", flush=True)
+            if i == 0:
+                out["score_columns/joint", (B, D)] = score_joint(
+                    B, D, dq, dev, torch, floor_ms)
     return out
 
 
@@ -2277,6 +2374,8 @@ def main() -> int:
                        ((65536, 40), False)]:
         timed("score_columns", (B, D), score_case(B, D, dev, torch, dq),
               torch, floor_ms)
+        if (B, D) in ((8192, 48), (65536, 40)):
+            score_joint(B, D, dq, dev, torch, floor_ms)
     for D in EDGE_DEPTHS:
         cases = rank_cases(EDGE_B, D, dtabs, dev, torch)
         if D <= 255:
@@ -2371,7 +2470,7 @@ def main() -> int:
     print(f"  shapes, most-used first: {json.dumps(shapes)}", flush=True)
     at_path = kernels_at_path_shapes(shapes, dtabs, dev, torch, floor_ms)
     for (name, _), t in at_path.items():
-        errs[name] = max(errs[name], t[0])
+        errs[name.split("/")[0]] = max(errs[name.split("/")[0]], t[0])
 
     phase("9 --jobs 1, 2, 4: 10 Mb pair, fast on the card, child processes")
     launches_jobs = jobs_runs(common, out_dir, fast_lines, n_cols,
@@ -2444,7 +2543,15 @@ def main() -> int:
             extra["registers"] = {
                 k: v["registers"] for k, v in sorted(registers.items())
                 if k == f"{name}_kernel" or k.startswith(f"{name}_kernel<")}
-        _, ms, pms, dms, pdms, bound, by = at_path[name, shape]
+        _, ms, pms, dms, pdms, bound, by, _ = at_path[name, shape]
+        if name == "score_columns":
+            # every timed call of phase 8: solo at each path's main shape,
+            # then joint
+            extra["timed"] = [
+                {"mode": k.partition("/")[2] or "solo", "shape": list(sh),
+                 "ms": t[1], "device_ms": t[3], **t[7]}
+                for (k, sh), t in at_path.items()
+                if k.partition("/")[0] == name and len(t) > 1]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[fused_as or name],
@@ -2484,9 +2591,47 @@ def main() -> int:
     return 0
 
 
+# score_columns with the dqstats (the slab step's instance) at slabs of
+# fewer columns than the default 8192 (SNIPER_SLAB_B) and at depths to 255
+# (SNIPER_SLAB_D): a thread walks a column's whole row, so a small B with
+# deep rows leaves most SMs idle
+SWEEP_B = (512, 1024, 2048, 4096, 8192)
+SWEEP_D = (48, 128, 255)
+
+
+def score_sweep() -> int:
+    """``python3 chip_smoke.py --score-sweep``: score_columns at every
+    (B, D) of SWEEP_B x SWEEP_D, held to its plain version on the timed
+    inputs and timed beside its bounds.  It uses only the port's
+    ``score_columns`` API, so a copy of this file dropped into an older
+    checkout times that checkout's kernel."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    from somatic_sniper_tpu_torch.device import resolve_device
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+
+    dev = resolve_device("cuda")
+    card = card_line()
+    print(card, flush=True)
+    floor_ms = queued_ms(lambda: gk.empty_launch(*FLOOR_GRID, dev), torch)
+    for D in SWEEP_D:
+        for B in SWEEP_B:
+            timed("score_columns", (B, D),
+                  score_case(B, D, dev, torch, dq=True, check=False), torch,
+                  floor_ms)
+    print(card, flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--cards"]:
         sys.exit(cards())
+    if sys.argv[1:] == ["--score-sweep"]:
+        sys.exit(score_sweep())
     if sys.argv[1:]:
-        sys.exit("usage: python3 chip_smoke.py [--cards]")
+        sys.exit("usage: python3 chip_smoke.py [--cards | --score-sweep]")
     sys.exit(main())

@@ -129,18 +129,25 @@ def build() -> Path:
 
 
 def _kernel_of(mangled: str) -> str | None:
-    """``name`` or ``name<N>`` of the ``*_kernel`` function a mangled
-    symbol names: the Itanium encoding writes an identifier as its
-    length, then its characters, and an int template argument N as
-    ``ILi<N>E``."""
+    """``name`` or ``name<v,...>`` (``score_columns_kernel<0,1>``) of
+    the ``*_kernel`` function a mangled symbol names: the Itanium
+    encoding writes an identifier as its length, then its characters,
+    and its template arguments as ``I...E`` of literals
+    ``L<type><value>E`` (``Li64E`` the int 64, ``Lin1E`` the int -1,
+    ``Lb1E`` the bool true)."""
     for m in re.finditer(r"\d+", mangled):
         for start in range(m.start(), m.end()):
             n = int(mangled[start:m.end()])
             name = mangled[m.end():m.end() + n]
             if len(name) == n and name.endswith("_kernel") \
                     and name.isidentifier():
-                arg = re.match(r"ILi(\d+)E", mangled[m.end() + n:])
-                return f"{name}<{arg[1]}>" if arg else name
+                args = re.match(r"I((?:L[a-z]n?\d+E)+)E",
+                                mangled[m.end() + n:])
+                if not args:
+                    return name
+                values = [v.replace("n", "-") for v in
+                          re.findall(r"L[a-z](n?\d+)E", args[1])]
+                return f"{name}<{','.join(values)}>"
     return None
 
 

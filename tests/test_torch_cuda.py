@@ -850,27 +850,30 @@ def test_deep_fast_batch_error_word_raises_at_collect_on_card(dev,
 
 # -- score_columns: the scoring step after glfgen in one kernel -------------
 
-def _score_args(cols, ref16, dtabs, params, dq, dev):
-    """score_columns' arguments on the card from ``score_inputs``."""
+def _score_args(cols, ref16, dtabs, params, dq, dev, offset=0):
+    """score_columns' arguments on the card from ``score_inputs``; the
+    lanes start ``offset`` words into their allocation."""
     t = {w: {k: torch.from_numpy(v.view(np.int32) if v.dtype == np.uint32
                                  else v).to(dev) for k, v in c.items()}
          for w, c in cols.items()}
     tu, no = t["tumor"], t["normal"]
+    for c in (tu, no):
+        B, D = c["slots"].shape
+        c["slots"] = torch.empty(B * D + offset, dtype=torch.int32,
+                                 device=dev)[offset:].view(B, D).copy_(
+                                     c["slots"])
     lanes = (tu["slots"], tu["nk"], no["slots"], no["nk"]) if dq else None
     return (tu["lk"], no["lk"], tu["depth"], no["depth"], tu["n"], no["n"],
             torch.from_numpy(ref16).to(dev), dtabs.solo_prior,
             dtabs.joint_prior, dtabs.q_r_int, params, lanes)
 
 
-@pytest.mark.parametrize("use_joint", [False, True])
-@pytest.mark.parametrize("D", [1, 48, 255])
-@pytest.mark.parametrize("B", [1, 33, 8192, 65536])
-def test_score_columns_matches_plain_on_card(dev, B, D, use_joint):
+def _check_score_columns(dev, B, D, use_joint, offset=0):
     """The kernel against score_columns_plain on the same card inputs,
     bit for bit: emit, the 16 fields and both dqstats rows, with the
-    dqstats and without, every gate flag each way, tie-heavy and full
-    likelihood ranges; two launches give the same bits, and the padding
-    columns never emit."""
+    dqstats and without (so both instances of the mode), every gate flag
+    each way, tie-heavy and full likelihood ranges; two launches give the
+    same bits, and the padding columns never emit."""
     from somatic_sniper_tpu_torch.ops import score_kernels as sk
 
     dtabs = device_tables(
@@ -883,7 +886,8 @@ def test_score_columns_matches_plain_on_card(dev, B, D, use_joint):
                                    min_somatic_qual=15, include_loh=loh,
                                    include_gor=gor)
             for dq in (True, False):
-                args = _score_args(cols, ref16, dtabs, params, dq, dev)
+                args = _score_args(cols, ref16, dtabs, params, dq, dev,
+                                   offset)
                 before = gk.LAUNCHES["score_columns"]
                 got, again = sk.score_columns(*args), sk.score_columns(*args)
                 want = sk.score_columns_plain(*args)
@@ -898,6 +902,46 @@ def test_score_columns_matches_plain_on_card(dev, B, D, use_joint):
                     assert torch.equal(a, a2), name
                 if B >= 16:
                     assert not got.emit[-SCORE_PAD:].any()
+
+
+# score_columns.cu's kCols: the columns (threads) of a block
+SCORE_BLOCK = 64
+
+
+@pytest.mark.parametrize("use_joint", [False, True])
+@pytest.mark.parametrize("D", [1, 47, 48, 80, 128, 255])
+@pytest.mark.parametrize("B", [1, 33, SCORE_BLOCK - 1, SCORE_BLOCK,
+                               SCORE_BLOCK + 1, 2 * SCORE_BLOCK + 1, 8192,
+                               65536])
+def test_score_columns_matches_plain_on_card(dev, B, D, use_joint):
+    """The kernel against its plain version (``_check_score_columns``),
+    a thread a column in blocks of SCORE_BLOCK: B at and around the block
+    size and at the slab's and the batch's sizes, D odd and even (the
+    skewed row walk) to 255 (the largest copy to shared memory; at 80
+    the copy and the static shared memory pass 48 KB together, not
+    alone); all four instances."""
+    _check_score_columns(dev, B, D, use_joint)
+
+
+@pytest.mark.parametrize("use_joint", [False, True])
+@pytest.mark.parametrize("D", [1, 3, 47, 48])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_score_columns_unaligned_lanes_on_card(dev, offset, D, use_joint):
+    """Lanes that start 1-3 words past a 16-byte boundary: each block's
+    region is copied as its aligned middle and the words on either
+    side, the whole region by threads where it spans no aligned chunk."""
+    for B in (1, SCORE_BLOCK + 1, 2 * SCORE_BLOCK + 2):
+        _check_score_columns(dev, B, D, use_joint, offset)
+
+
+@pytest.mark.parametrize("use_joint", [False, True])
+@pytest.mark.parametrize("D", [256, 600])
+def test_score_columns_direct_rows_on_card(dev, D, use_joint):
+    """Rows read from device memory by their thread: deeper than the copy
+    to shared memory takes (256, and 600, whose packed sums flush three
+    chunks of 255 lanes)."""
+    for B in (SCORE_BLOCK + 1, 1000):
+        _check_score_columns(dev, B, D, use_joint)
 
 
 def test_score_columns_empty_batch_on_card(dev):

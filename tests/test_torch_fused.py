@@ -254,3 +254,33 @@ def test_binding_matches_c_signature(name):
     assert len(argtypes) == len(c_args)
     assert list(argtypes) == c_args
     assert restype is c_ret
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_120score_columns_kernelILb0ELb0EEEvNS_9ScoreArgsE",
+     "score_columns_kernel<0,0>"),
+    ("_ZN12_GLOBAL__N_120score_columns_kernelILb0ELb1EEEvNS_9ScoreArgsE",
+     "score_columns_kernel<0,1>"),
+    ("_ZN12_GLOBAL__N_120score_columns_kernelILb1ELb0EEEvNS_9ScoreArgsE",
+     "score_columns_kernel<1,0>"),
+    ("_ZN12_GLOBAL__N_120score_columns_kernelILb1ELb1EEEvNS_9ScoreArgsE",
+     "score_columns_kernel<1,1>"),
+    ("_ZN12_GLOBAL__N_119accumulate32_kernelILi64EEEvPKiS2_S2_PKfPfS5_PiS6_iii",
+     "accumulate32_kernel<64>"),
+    ("_ZN12_GLOBAL__N_115glfgen16_kernelILi256EEEvPKtPKiPKfS6_S6_PiS7_iii",
+     "glfgen16_kernel<256>"),
+    ("_ZN12_GLOBAL__N_117accumulate_kernelILi0EEEvPKiS2_S2_PKfPfS5_PiS6_S6_S6_"
+     "iiiibi", "accumulate_kernel<0>"),
+    ("_ZN12_GLOBAL__N_117accumulate_kernelILin1EEEvPKi",
+     "accumulate_kernel<-1>"),
+    ("_ZN12_GLOBAL__N_117assembly10_kernelEPKfS1_PKiS3_S1_S1_PiS4_S4_ii",
+     "assembly10_kernel"),
+    ("_Z12empty_kernelv", "empty_kernel"),
+    ("_ZN7cub_ns6detail5helperEv", None),
+])
+def test_kernel_names_from_mangled_symbols(mangled, name):
+    """resource_usage's names: each template instance its own (four of
+    score_columns_kernel, told apart by their two bools), one int
+    argument as <N>, a plain kernel bare, and no name for a symbol that
+    is not a *_kernel."""
+    assert build._kernel_of(mangled) == name

@@ -174,6 +174,43 @@ def test_dqstats_match_device_dqstats(D):
         np.testing.assert_array_equal(g.numpy(), np.asarray(want))
 
 
+# the kernel's block (score_columns.cu's kCols) and the depths of its card
+# tests: the plain version it is held to, pinned to the JAX package there
+SCORE_BLOCK = 64
+
+
+@pytest.mark.parametrize("use_joint", [False, True])
+@pytest.mark.parametrize("D", [1, 47, 48, 128, 255])
+@pytest.mark.parametrize("B", [1, SCORE_BLOCK - 1, SCORE_BLOCK,
+                               SCORE_BLOCK + 1, 2 * SCORE_BLOCK + 1])
+def test_plain_matches_call_batch_at_block_edges(monkeypatch, B, D,
+                                                 use_joint):
+    """score_columns_plain (the CPU's route) against the body of the JAX
+    call_batch at the B and D of the kernel's card tests: every field,
+    emit and both dqstats rows, on tie-heavy likelihoods."""
+    params = _params(use_joint, min_qual=15)
+    tabs = T.build_tables(params)
+    cols, ref16 = score_inputs(B, D, 3 * B + D + use_joint, 6)
+    got = _port(cols, ref16, tabs, params)
+    want = _jax_from_columns(monkeypatch, cols, ref16, tabs, params)
+    _assert_scored(got, want)
+
+
+@pytest.mark.parametrize("D", [1, 47, 48])
+def test_plain_matches_call_batch_at_65536_columns(monkeypatch, D):
+    """The same at the batch path's 65536 columns (solo priors, both
+    samples' dqstats).  Deeper lanes at this width take the JAX side
+    ~1-2 GB of host memory; the card tests hold the kernel to the plain
+    version there."""
+    params = _params(min_qual=15)
+    tabs = T.build_tables(params)
+    cols, ref16 = score_inputs(65536, D, 65536 + D, 256)
+    got = _port(cols, ref16, tabs, params)
+    want = _jax_from_columns(monkeypatch, cols, ref16, tabs, params)
+    _assert_scored(got, want)
+    assert not got.emit[-SCORE_PAD:].any()
+
+
 @pytest.mark.parametrize("hi", [4, 256])
 @pytest.mark.parametrize("include_loh,include_gor",
                          [(True, True), (False, True), (True, False),
