@@ -594,7 +594,7 @@ def _run(args, params, header_fn, hdata, device) -> int:
         skip = set(manifest.done) if manifest else None
         mode = ("r+" if resume_at is not None and os.path.exists(args.output)
                 else "w")
-        with open(args.output, mode) as fh:
+        with run_stats.maybe_profile(), open(args.output, mode) as fh:
             if mode == "r+":
                 fh.seek(resume_at)
                 fh.truncate()

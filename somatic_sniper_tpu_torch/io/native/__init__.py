@@ -13,12 +13,15 @@ into this directory (a rename puts it in place).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
+
+from ...utils.stats import STATS
 
 _DIR = Path(__file__).resolve().parent
 _SRC = _DIR / "sniper_native.cpp"
@@ -268,13 +271,30 @@ def get_lib():
             ctypes.POINTER(ctypes.c_char), ctypes.c_int64,
             ctypes.POINTER(ctypes.c_int64),
         ]
-        lib.sniper_prof.restype = None
-        lib.sniper_prof.argtypes = [
-            ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+        lib.sniper_load_counters.restype = None
+        lib.sniper_load_counters.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64),
         ]
         lib.sniper_last_error.restype = ctypes.c_char_p
         _lib = lib
+        STATS.add_source(functools.partial(load_counters, lib))
         return _lib
+
+
+LOAD_PHASES = ("read", "bgzf_scan", "inflate", "record_scan",
+               "pileup_build", "pure_flags")
+INFLATE_COUNTERS = ("bytes_inflated", "blocks_libdeflate", "blocks_zlib")
+
+
+def load_counters(lib) -> tuple[dict[str, float], dict[str, int]]:
+    """The loader's cumulative phase seconds (summed over threads) and
+    inflate counters, as ``native.<name>`` entries of ``STATS``: read,
+    never reset, so that a window's delta holds whatever else reads them."""
+    secs = (ctypes.c_double * len(LOAD_PHASES))()
+    counts = (ctypes.c_int64 * len(INFLATE_COUNTERS))()
+    lib.sniper_load_counters(secs, counts)
+    return ({f"native.{k}": v for k, v in zip(LOAD_PHASES, secs)},
+            {f"native.{k}": v for k, v in zip(INFLATE_COUNTERS, counts)})
 
 
 def available() -> bool:

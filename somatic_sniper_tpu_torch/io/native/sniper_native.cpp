@@ -52,9 +52,34 @@ static bool read_file(const char* path, std::vector<uint8_t>& out) {
 
 // Load-phase wall-time accumulators (ns), summed across threads/calls:
 // 0 file-read, 1 bgzf-header-scan, 2 inflate, 3 record-scan/filter,
-// 4 pileup-build, 5 pure-flags.  Read+reset via sniper_prof (bench
-// attribution only — a handful of clock calls per window-load).
+// 4 pileup-build, 5 pure-flags.  Cumulative for the process; read by
+// sniper_load_counters, never reset (a reader takes deltas).  A
+// handful of clock calls per window load.
 static std::atomic<int64_t> g_prof[6];
+
+// Inflate counters, cumulative like g_prof: 0 bytes inflated, 1 blocks
+// inflated by libdeflate, 2 blocks inflated by zlib (the backend is
+// picked at run time, libdeflate_probe).  inflate_block counts into the
+// calling thread's tally; publish_inflate adds a thread's tally to the
+// globals, once per call (PublishInflate) and once per spawned worker.
+static std::atomic<int64_t> g_inflate[3];
+
+struct InflateTally {
+    int64_t bytes = 0, libdeflate = 0, zlib = 0;
+};
+static thread_local InflateTally t_inflate;
+
+static void publish_inflate() {
+    InflateTally& t = t_inflate;
+    if (t.bytes) g_inflate[0].fetch_add(t.bytes);
+    if (t.libdeflate) g_inflate[1].fetch_add(t.libdeflate);
+    if (t.zlib) g_inflate[2].fetch_add(t.zlib);
+    t = InflateTally();
+}
+
+struct PublishInflate {
+    ~PublishInflate() { publish_inflate(); }
+};
 
 static inline int64_t now_ns() {
     return std::chrono::duration_cast<std::chrono::nanoseconds>(
@@ -187,6 +212,8 @@ static bool inflate_block(const uint8_t* src, int32_t src_len, uint8_t* dst,
             size_t actual = 0;
             int r = g_ld_decomp(dec.p, src, (size_t)src_len, dst,
                                 (size_t)dst_len, &actual);
+            ++t_inflate.libdeflate;
+            t_inflate.bytes += (int64_t)actual;
             return r == 0 /* LIBDEFLATE_SUCCESS */ &&
                    actual == (size_t)dst_len;
         }
@@ -210,6 +237,8 @@ static bool inflate_block(const uint8_t* src, int32_t src_len, uint8_t* dst,
     zsp->next_out = dst;
     zsp->avail_out = dst_len;
     int ret = inflate(zsp, Z_FINISH);
+    ++t_inflate.zlib;
+    t_inflate.bytes += (int64_t)(dst_len - zsp->avail_out);
     return ret == Z_STREAM_END && zsp->avail_out == 0;
 }
 
@@ -222,6 +251,7 @@ static bool bgzf_decompress(const std::vector<uint8_t>& raw,
     out.resize(total);
     if (n_threads < 1) n_threads = 1;
     libdeflate_probe();
+    PublishInflate publish;
     std::atomic<size_t> next(0);
     std::atomic<bool> ok(true);
     auto worker = [&]() {
@@ -236,7 +266,8 @@ static bool bgzf_decompress(const std::vector<uint8_t>& raw,
         }
     };
     std::vector<std::thread> ts;
-    for (int t = 1; t < n_threads; ++t) ts.emplace_back(worker);
+    for (int t = 1; t < n_threads; ++t)
+        ts.emplace_back([&]() { worker(); publish_inflate(); });
     worker();
     for (auto& t : ts) t.join();
     if (!ok.load()) {
@@ -569,6 +600,7 @@ static bool region_scan(const char* path, const int64_t* chunks,
     const int64_t fsize = ftell(f);
     if (n_threads < 1) n_threads = 1;
     libdeflate_probe();
+    PublishInflate publish;
     std::vector<uint8_t> comp;  // reused per chunk
     for (int64_t ci = 0; ci < n_chunks; ++ci) {
         int64_t vbeg = chunks[2 * ci], vend = chunks[2 * ci + 1];
@@ -649,7 +681,7 @@ static bool region_scan(const char* path, const int64_t* chunks,
             std::vector<std::thread> ts;
             for (int t = 1;
                  t < n_threads && (size_t)t < blocks.size(); ++t)
-                ts.emplace_back(worker);
+                ts.emplace_back([&]() { worker(); publish_inflate(); });
             worker();
             for (auto& t : ts) t.join();
         }
@@ -744,6 +776,7 @@ NativeBamHeader* bam_read_header(const char* path) {
         return nullptr;
     }
     libdeflate_probe();
+    PublishInflate publish;
     std::vector<uint8_t> buf;
     int64_t rc;
     for (;;) {
@@ -847,6 +880,7 @@ NativeRecTable* bam_record_table(const char* path, int n_threads) {
     std::vector<uint8_t> buf((size_t)total);
     if (n_threads < 1) n_threads = 1;
     libdeflate_probe();
+    PublishInflate publish;
     {
         std::atomic<size_t> next(0);
         std::atomic<bool> ok(true);
@@ -862,7 +896,8 @@ NativeRecTable* bam_record_table(const char* path, int n_threads) {
             }
         };
         std::vector<std::thread> ts;
-        for (int t = 1; t < n_threads; ++t) ts.emplace_back(worker);
+        for (int t = 1; t < n_threads; ++t)
+            ts.emplace_back([&]() { worker(); publish_inflate(); });
         worker();
         for (auto& t : ts) t.join();
         if (!ok.load()) {
@@ -1409,14 +1444,14 @@ NativePileup* bam_load_region_pileup(
     }
 }
 
-// Load-phase profile: out[6] <- accumulated seconds
-// {read, bgzf_scan, inflate, record_scan, pileup_build, pure_flags};
-// reset != 0 zeroes the accumulators after reading.
-void sniper_prof(double* out, int reset) {
-    for (int i = 0; i < 6; ++i) {
-        out[i] = (double)g_prof[i].load() * 1e-9;
-        if (reset) g_prof[i].store(0);
-    }
+// The load counters since the library was loaded, read without reset:
+// seconds[6] <- {read, bgzf_scan, inflate, record_scan, pileup_build,
+// pure_flags}, summed over threads; counts[3] <- {bytes_inflated,
+// blocks_libdeflate, blocks_zlib}.
+void sniper_load_counters(double* seconds, int64_t* counts) {
+    for (int i = 0; i < 6; ++i)
+        seconds[i] = (double)g_prof[i].load() * 1e-9;
+    for (int i = 0; i < 3; ++i) counts[i] = g_inflate[i].load();
 }
 
 void pileup_destroy(NativePileup* np) {

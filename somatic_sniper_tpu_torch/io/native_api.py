@@ -44,24 +44,6 @@ def _flag_tail_args(flag_args):
     return tail, (blob, off, fk_c, gm_c)
 
 
-PROF_PHASES = ("read", "bgzf_scan", "inflate", "record_scan",
-               "pileup_build", "pure_flags")
-
-
-def load_prof(reset: bool = True) -> dict[str, float]:
-    """Accumulated native load-phase seconds since the last reset
-    (summed across loader threads; bench/diagnostic attribution)."""
-    lib = native.get_lib()
-    if lib is None:
-        return {}
-    out = np.zeros(6, np.float64)
-    lib.sniper_prof(
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        1 if reset else 0,
-    )
-    return dict(zip(PROF_PHASES, out.tolist()))
-
-
 def load_and_columnize(
     path: str,
     flag_mask: int = BAM_DEF_MASK,

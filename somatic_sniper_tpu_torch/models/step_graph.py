@@ -312,13 +312,17 @@ class SlabStepGraph:
             device) -> tuple[int, np.ndarray]:
         """One host slab through the captured step on the current stream:
         upload from pinned memory, replay, copy ``count`` and ``rows``
-        back, one wait.  Returns ``(count, rows[:count])`` as numpy."""
+        back, one wait.  Returns ``(count, rows[:count])`` as numpy.
+        The upload counts in STATS as ``device.upload``, the replay and
+        the wait for its rows as ``device.score``."""
         _, B, D = stacked_h.shape
         with self._lock:
             step = self.step(B, D, dtabs, params, device)
-            step.upload(stacked_h, meta_h)
-            self._replay(step)
-            out = step.fetch()
+            with STATS.timer("device.upload"):
+                step.upload(stacked_h, meta_h)
+            with STATS.timer("device.score"):
+                self._replay(step)
+                out = step.fetch()
             self._replayed(step)
             return out
 

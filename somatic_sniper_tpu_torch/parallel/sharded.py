@@ -31,6 +31,7 @@ import functools
 import json
 import os
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import wait as futures_wait
 from pathlib import Path
@@ -103,13 +104,18 @@ class _QuirkCarry:
         """drop_first_end_le for a window, or -1 when not applicable."""
         if beg != 0 or tid == 0:
             return -1
-        lib = native.get_lib()
         # previous contig with any indexed reads
         for p in range(tid - 1, -1, -1):
             if self.index.refs[p].bins:
                 break
         else:
             return -1
+        with STATS.timer("load.carry"):
+            return self._scan_back(p)
+
+    def _scan_back(self, p: int) -> int:
+        """The last kept-read start of contig ``p``."""
+        lib = native.get_lib()
         plen = self.header.ref_lengths[p]
         # Backward scan in DISJOINT, escalating spans: each BGZF region
         # is decoded at most once (worst case = one pass over the
@@ -167,71 +173,96 @@ def call_pair_windows(
     at once), never by exact windows the native layer scores.
     ``prefilter=False`` scores every column the samples share, with the
     same output; ``max_batch`` bounds the batch path's batches."""
-    require_native("the windowed driver (region loads)")
-    if device is None and (precision == "fast" or not ref_fasta):
-        raise ValueError(f"{precision} precision needs a device here")
-    dev = functools.cache(lambda: resolve_device(device))
-    if precision == "fast":
-        dev()  # a missing card fails the run before any load
-    header = read_bam_header(tumor_bam)
-    idx_t = bai.ensure_index(tumor_bam)
-    idx_n = bai.ensure_index(normal_bam)
-    windows = genome_windows(header.ref_lengths, window_size)
-    mine = shard_windows(list(enumerate(windows)), shards, shard_index)
+    with STATS.timer("driver.open"):
+        require_native("the windowed driver (region loads)")
+        if device is None and (precision == "fast" or not ref_fasta):
+            raise ValueError(f"{precision} precision needs a device here")
+        dev = functools.cache(lambda: resolve_device(device))
+        if precision == "fast":
+            dev()  # a missing card fails the run before any load
+        header = read_bam_header(tumor_bam)
+        idx_t = bai.ensure_index(tumor_bam)
+        idx_n = bai.ensure_index(normal_bam)
+        windows = genome_windows(header.ref_lengths, window_size)
+        mine = shard_windows(list(enumerate(windows)), shards, shard_index)
 
-    fasta = FastaFile(ref_fasta) if ref_fasta else None
-    refcache = RefCache(fasta, header)
-    tabs = build_tables(params)
-    ref_blob, ref_off = _ref_blob(fasta, header)
-    packed16 = precision == "fast" and ref_blob is not None
-    ref16_fn = _make_ref16_fn(ref_blob, ref_off) if packed16 else None
+        fasta = FastaFile(ref_fasta) if ref_fasta else None
+        refcache = RefCache(fasta, header)
+        tabs = build_tables(params)
+        ref_blob, ref_off = _ref_blob(fasta, header)
+        packed16 = precision == "fast" and ref_blob is not None
+        ref16_fn = _make_ref16_fn(ref_blob, ref_off) if packed16 else None
 
-    carry_t = _QuirkCarry(tumor_bam, idx_t, header,
-                          params.flag_mask, params.mapq_threshold)
-    carry_n = _QuirkCarry(normal_bam, idx_n, header,
-                          params.flag_mask, params.mapq_threshold)
+        carry_t = _QuirkCarry(tumor_bam, idx_t, header,
+                              params.flag_mask, params.mapq_threshold)
+        carry_n = _QuirkCarry(normal_bam, idx_n, header,
+                              params.flag_mask, params.mapq_threshold)
 
-    flag_args = None
-    if prefilter and ref_blob is not None:
-        pt = prefilter_tables(tabs)
-        if pt is not None:
-            gmin, margin = pt
-            flag_args = (ref_blob, ref_off, tabs.fk, gmin, margin)
+        flag_args = None
+        if prefilter and ref_blob is not None:
+            pt = prefilter_tables(tabs)
+            if pt is not None:
+                gmin, margin = pt
+                flag_args = (ref_blob, ref_off, tabs.fk, gmin, margin)
 
-    def _load_one(path, idx, carry, tid, beg, end):
-        return native_api.load_region_and_columnize(
-            path, np.asarray(bai.region_chunks(idx, tid, beg, end)),
-            tid, beg, end, params.flag_mask, params.mapq_threshold,
-            n_threads=1, drop_first_end_le=carry.for_window(tid, beg),
-            flag_args=flag_args,
-        )
-
-    todo = [(wi, w) for wi, w in mine
-            if not (skip_windows and wi in skip_windows)]
-    # SNIPER_LOAD_POOL bounds the concurrent region-load threads (the
-    # native loader releases the GIL); --jobs sets it to 1 for its
-    # workers when N workers x 2 load threads would oversubscribe the
-    # host's cores.  Default: cores minus the main and device threads,
-    # in [2, 6] (sharded.py:220-234)
-    default_pool = max(2, min(6, (os.cpu_count() or 2) - 2))
-    try:
-        pool_n = max(1, int(
-            os.environ.get("SNIPER_LOAD_POOL", str(default_pool))))
-    except ValueError:
-        pool_n = default_pool
-    ex = ThreadPoolExecutor(max_workers=pool_n)
+        todo = [(wi, w) for wi, w in mine
+                if not (skip_windows and wi in skip_windows)]
+        # SNIPER_LOAD_POOL bounds the concurrent region-load threads (the
+        # native loader releases the GIL); --jobs sets it to 1 for its
+        # workers when N workers x 2 load threads would oversubscribe the
+        # host's cores.  Default: cores minus the main and device
+        # threads, in [2, 6] (sharded.py:220-234)
+        default_pool = max(2, min(6, (os.cpu_count() or 2) - 2))
+        try:
+            pool_n = max(1, int(
+                os.environ.get("SNIPER_LOAD_POOL", str(default_pool))))
+        except ValueError:
+            pool_n = default_pool
+        # windows in flight ahead of the one being scored;
+        # SNIPER_LOOKAHEAD overrides, a bad value is ignored
+        # (sharded.py:301-313)
+        lookahead = 2 if pool_n <= 2 else (pool_n + 1) // 2 + 1
+        try:
+            lookahead = max(1, int(os.environ.get("SNIPER_LOOKAHEAD",
+                                                  lookahead)))
+        except ValueError:
+            pass
+        STATS.add("lookahead_windows", lookahead)
+        ex = ThreadPoolExecutor(max_workers=pool_n)
+        pool_t0 = time.perf_counter()
     # with threads to spare beyond a window's two loads, the window's
     # plan rides the pool too (sharded.py:239-247)
     offload_plan = pool_n >= 3
 
-    def _submit_window(win):
+    def _pooled(fn, *args):
+        """Submit ``fn(*args)`` to the pool, its wall time added to
+        ``load_pool.busy``."""
+        def task():
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                STATS.record("load_pool.busy", time.perf_counter() - t)
+        return ex.submit(task)
+
+    def _load_one(wi, path, idx, carry, tid, beg, end):
+        with STATS.context(window=wi), STATS.timer("load.region"):
+            return native_api.load_region_and_columnize(
+                path, np.asarray(bai.region_chunks(idx, tid, beg, end)),
+                tid, beg, end, params.flag_mask, params.mapq_threshold,
+                n_threads=1, drop_first_end_le=carry.for_window(tid, beg),
+                flag_args=flag_args,
+            )
+
+    def _submit_window(wi, win):
         """The window's two region loads, and on wide pools its plan
         chained behind them; resolves to (pu_t, pu_n, plan-or-None)
         (sharded.py:249-299)."""
         tid, beg, end = win
-        f_t = ex.submit(_load_one, tumor_bam, idx_t, carry_t, tid, beg, end)
-        f_n = ex.submit(_load_one, normal_bam, idx_n, carry_n, tid, beg,
-                        end)
+        f_t = _pooled(_load_one, wi, tumor_bam, idx_t, carry_t, tid, beg,
+                      end)
+        f_n = _pooled(_load_one, wi, normal_bam, idx_n, carry_n, tid, beg,
+                      end)
         done = Future()
         n_landed = [0]
         cb_lock = threading.Lock()
@@ -241,8 +272,10 @@ def call_pair_windows(
                 pu_t, pu_n = f_t.result(), f_n.result()
                 plan = None
                 if can_exact_native(pu_t, pu_n, ref_blob):
-                    plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off,
-                                     prefilter, cns_mode="proof")
+                    with STATS.context(window=wi):
+                        plan = make_plan(pu_t, pu_n, tabs, ref_blob,
+                                         ref_off, prefilter,
+                                         cns_mode="proof")
                 done.set_result((pu_t, pu_n, plan))
             except BaseException as e:  # surfaces on .result()
                 done.set_exception(e)
@@ -259,7 +292,7 @@ def call_pair_windows(
                 if n_landed[0] < 2:
                     return
             if offload_plan:
-                ex.submit(_plan_task)
+                _pooled(_plan_task)
             else:
                 _resolve_loads()
 
@@ -267,16 +300,7 @@ def call_pair_windows(
         f_n.add_done_callback(_on_load)
         return done
 
-    # windows in flight ahead of the one being scored; SNIPER_LOOKAHEAD
-    # overrides, a bad value is ignored (sharded.py:301-313)
-    lookahead = 2 if pool_n <= 2 else (pool_n + 1) // 2 + 1
-    try:
-        lookahead = max(1, int(os.environ.get("SNIPER_LOOKAHEAD",
-                                              lookahead)))
-    except ValueError:
-        pass
-    STATS.add("lookahead_windows", lookahead)
-    inflight = [_submit_window(w) for _, w in todo[:lookahead]]
+    inflight = [_submit_window(wi, w) for wi, w in todo[:lookahead]]
 
     slab_disp = None
     # the batch path's collect is deferred by one window, so its device
@@ -293,18 +317,25 @@ def call_pair_windows(
     try:
         for i, (wi, (tid, beg, end)) in enumerate(todo):
             fut = inflight.pop(0)
-            with STATS.timer("load_wait"):
+            # load_wait spans the loop's top: the polls, the emits of
+            # earlier windows and the caller's time at those yields;
+            # load_wait.block is the time blocked on the window's loads
+            with STATS.context(window=wi), STATS.timer("load_wait"):
                 # drain landed slabs while the next loads run, so decode
                 # and emit work fills what would be idle wait
                 if slab_disp is not None:
                     while not fut.done():
                         slab_disp.poll()
                         yield from slab_disp.ready()
-                        futures_wait([fut], timeout=0.02)
+                        with STATS.timer("load_wait.block"):
+                            futures_wait([fut], timeout=0.02)
+                if not fut.done():
+                    with STATS.timer("load_wait.block"):
+                        futures_wait([fut])
                 pu_t, pu_n, plan = fut.result()
             j = i + lookahead
             if j < len(todo):
-                inflight.append(_submit_window(todo[j][1]))
+                inflight.append(_submit_window(*todo[j]))
             win = (tid, beg, end)
             if precision == "exact" and can_exact_native(pu_t, pu_n,
                                                          ref_blob):
@@ -343,8 +374,9 @@ def call_pair_windows(
                     refcache, dev(), fmt,
                 )
             if plan is None:
-                plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off,
-                                 prefilter, cns_mode="proof")
+                with STATS.context(window=wi):
+                    plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off,
+                                     prefilter, cns_mode="proof")
             slab_disp.add_window(wi, win, pu_t, pu_n, plan,
                                  remaining=len(todo) - 1 - i)
             yield from slab_disp.ready()
@@ -355,6 +387,8 @@ def call_pair_windows(
             yield _collect(deferred)
     finally:
         ex.shutdown(wait=True)
+        STATS.record("load_pool.open", pool_n * (time.perf_counter()
+                                                  - pool_t0), threads=True)
 
 
 def call_pair_sharded(*args, **kwargs) -> Iterator:

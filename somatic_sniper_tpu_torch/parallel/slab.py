@@ -190,7 +190,9 @@ class TorchSlabDispatcher:
         self.D: int | None = None
         self.max_live = max_live_windows
         self.order: deque[_WindowState] = deque()
-        self.queue: deque = deque()  # (segs, Future[(count, rows)]) FIFO
+        # (segs, Future[(count, rows)], slab index) FIFO
+        self.queue: deque = deque()
+        self.slabs_flushed = 0
         # One background device thread owns the whole device
         # interaction per slab (upload, launches, result fetch, see
         # _dispatch_and_fetch), so the wait for the card rides under the
@@ -367,7 +369,7 @@ class TorchSlabDispatcher:
         return True
 
     def _write_part(self, ws, plan, sel) -> None:
-        with STATS.timer("pad+dispatch"):
+        with STATS.context(window=ws.wi), STATS.timer("pad+dispatch"):
             b = len(sel)
             s, e = self.fill, self.fill + b
             ref16 = np.ascontiguousarray(plan.ref16[sel])
@@ -415,7 +417,7 @@ class TorchSlabDispatcher:
         end-game, or the finish tail); results stage like any device
         batch.  Exact output satisfies the fast contract by
         construction — same calls, zero phred drift."""
-        with STATS.timer(stat):
+        with STATS.context(window=ws.wi), STATS.timer(stat):
             sel = np.ascontiguousarray(sel)
             p = self.params
             rows = exact_pair_rows(
@@ -459,10 +461,12 @@ class TorchSlabDispatcher:
         # plan/pad/emit work is the pipeline's critical path.  One
         # thread keeps dispatch+fetch FIFO, so output order (and bytes)
         # cannot change.
+        slab = self.slabs_flushed
+        self.slabs_flushed += 1
         fut = self._collector.submit(
-            self._dispatch_and_fetch, self.stacked_h, self.meta_h
+            self._dispatch_and_fetch, self.stacked_h, self.meta_h, slab
         )
-        self.queue.append((self.segs, fut))
+        self.queue.append((self.segs, fut, slab))
         STATS.add("slabs_dispatched", 1)
         STATS.add("device_columns", self.fill)
         STATS.add(
@@ -471,7 +475,7 @@ class TorchSlabDispatcher:
         )
         self._alloc()
 
-    def _dispatch_and_fetch(self, stacked_h, meta_h):
+    def _dispatch_and_fetch(self, stacked_h, meta_h, slab=None):
         """Upload one slab, score it, return ``(count, rows[:count])``
         as numpy (runs on the background device thread; the host
         buffers are owned by the caller and never reused, _flush
@@ -484,11 +488,13 @@ class TorchSlabDispatcher:
         asserts.  Split over several devices, each part goes through
         its device's captured step (``parallel.sharding
         .graphed_split``).  Only the CPU scores eagerly; a failed
-        capture or replay raises."""
+        capture or replay raises.  ``slab``: the slab's index, the id
+        the device thread's spans carry."""
         if not self._in_flight.acquire(blocking=False):
             raise AssertionError("a second slab in flight")
         try:
-            return self._score_slab(stacked_h, meta_h)
+            with STATS.context(slab=slab):
+                return self._score_slab(stacked_h, meta_h)
         finally:
             self._in_flight.release()
 
@@ -575,8 +581,8 @@ class TorchSlabDispatcher:
         building is deferred to :meth:`ready` so each window pays ONE
         emit call over all its batches instead of one per slab segment
         plus one per host-deep tail."""
-        segs, fut = self.queue.popleft()
-        with STATS.timer("device"):
+        segs, fut, slab = self.queue.popleft()
+        with STATS.context(slab=slab), STATS.timer("device"):
             _, rows = fut.result()
         idx = rows[:, 0]
         for seg in segs:
@@ -613,7 +619,7 @@ class TorchSlabDispatcher:
             keys_l.append(keys)
             ref_l.append(ref16)
             base += len(keys)
-        with STATS.timer("emit"):
+        with STATS.context(window=ws.wi), STATS.timer("emit"):
             recs = emit_records_compact(
                 np.concatenate(keys_l), np.concatenate(rows_l),
                 np.concatenate(ref_l), ws.pu_t, ws.pu_n, self.refcache,
