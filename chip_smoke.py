@@ -43,7 +43,10 @@ closing ``{"ok": true, ...}`` line is never printed):
    contract, with the launch counters proving the run went through
    ``glfgen32`` twice a slab and through no stand-alone kernel, every
    slab a replay of the step's captured CUDA graph
-   (``models/step_graph.py``);
+   (``models/step_graph.py``), and its region loads' BGZF blocks through
+   ``bgzf_inflate`` (``native.blocks_card`` > 0, none inflated again on
+   the host, ``launches_bgzf_inflate`` counted where it is launched; the
+   windowed runs of phases 9, 10, 15 and 19 are held to the same);
 5. fast precision on the card against the golden pair's expected VCF;
 6. the batch path with full-u32 batches (the no-reference route, with
    the reference's ref16 so sites emit) on the 10 Mb pair, whole-file,
@@ -140,7 +143,12 @@ closing ``{"ok": true, ...}`` line is never printed):
     cuda:0])``: bytes (so the sha256) equal to phase 4's fast output,
     every slab split and replayed a part a captured step
     (``slabs_split`` = ``slabs_graphed`` = ``slabs_dispatched``, glfgen32
-    four times a slab), wall, cols/s and the graph pool.
+    four times a slab), wall, cols/s and the graph pool;
+20. ``bgzf_inflate`` at the region load's shape: every BGZF block of a
+    250 kb window of the benchmark's generator at 30x (~210 blocks)
+    through ``sniper_card_inflate``, byte-equal to zlib, one launch;
+    its call ms beside host zlib's, its device ms (torch.profiler) and
+    its byte bound in the ``kernels`` line.
 
 Its first statements make ``import jax`` and ``import somatic_sniper_tpu``
 fail, so a pass also shows that the port needs neither; it imports only
@@ -231,6 +239,10 @@ KERNELS = {
     "score_columns": (CSRC + "score_columns.cu",
                       "somatic_sniper_tpu/models/somatic.py:130 (call_batch "
                       "after glfgen; consensus.py:41-211, somatic.py:62-128)"),
+    # no TPU kernel: its plain version is the host's zlib inflate
+    "bgzf_inflate": (CSRC + "bgzf_inflate.cu",
+                     "none: host zlib in somatic_sniper_tpu/io/native/"
+                     "sniper_native.cpp region_scan"),
 }
 # the fused kernel that runs a stand-alone kernel's code on each path
 FUSED_AS = {"accumulate32": "glfgen32", "assembly10": "glfgen32",
@@ -1204,8 +1216,9 @@ def finish_cli(procs: list[subprocess.Popen], limit: float) -> list[str]:
 
 def check_scored_on_card(summaries: list[dict], n: int, what: str) -> dict:
     """``n`` processes' summaries, each of which must show slabs scored
-    through glfgen32 on the card (one launch a sample a slab).  Returns
-    the launches of the path, summed."""
+    through glfgen32 on the card (one launch a sample a slab) and its
+    region loads inflated there (``check_card_inflate``).  Returns the
+    launches of the path, summed."""
     if len(summaries) != n:
         raise AssertionError(f"{what}: {len(summaries)} stage summaries "
                              f"for {n} processes")
@@ -1217,7 +1230,9 @@ def check_scored_on_card(summaries: list[dict], n: int, what: str) -> dict:
             raise AssertionError(
                 f"{what}: process {i} did not score its slabs through "
                 f"glfgen32 in the captured step on the card: {b}")
-    return {"glfgen32": sum(b["launches_glfgen32"] for b in summaries)}
+    return {"glfgen32": sum(b["launches_glfgen32"] for b in summaries),
+            "bgzf_inflate": sum(check_card_inflate(b, f"{what} process {i}")
+                                for i, b in enumerate(summaries))}
 
 
 def jobs_runs(common: list[str], out_dir: Path, fast_lines: list[str],
@@ -2031,6 +2046,7 @@ def records_and_prefilter(pair: Path, out_dir: Path, fast_lines: list[str],
         wall = time.perf_counter() - t0
         stats = STATS.snapshot()
         launches = dict(gk.LAUNCHES)
+        launches["bgzf_inflate"] = check_card_inflate(stats, what)
         if body_lines(out) != fast_lines:
             raise AssertionError(f"{what}: other bytes than phase 4's fast "
                                  "output")
@@ -2128,6 +2144,8 @@ def split_prefilter_off(pair: Path, out_dir: Path, fast_lines: list[str],
             f"{lines[first:first + 1]} against "
             f"{fast_lines[first:first + 1]}")
     print_digest(lines)
+    launches["bgzf_inflate"] = check_card_inflate(
+        stats, f"prefilter=False over [{names}]")
     slabs = int(stats.get("slabs_dispatched", 0))
     counts = {k: int(stats.get(k, 0)) for k in
               ("slabs_dispatched", "slabs_split", "slabs_graphed",
@@ -2152,6 +2170,161 @@ def split_prefilter_off(pair: Path, out_dir: Path, fast_lines: list[str],
           f"columns {int(stats.get('device_columns', 0))}; graph pool MiB "
           f"{pools}", flush=True)
     return launches, wall
+
+
+# the inflate's window: one contig of a 250 kb window (the CLI's default
+# window) of the benchmark's wgs30 pair, one sample at 30x
+INFLATE_WINDOW = {"n_contigs": 1, "contig_len": 250_000}
+INFLATE_SEED = 2**31 + 20
+
+
+def bgzf_blocks(path: Path) -> list[tuple[bytes, int, int]]:
+    """(raw DEFLATE stream, ISIZE, CRC32) of every BGZF block of a file."""
+    raw = path.read_bytes()
+    out, pos = [], 0
+    while pos < len(raw):
+        xlen = int.from_bytes(raw[pos + 10:pos + 12], "little")
+        bsize = int.from_bytes(raw[pos + 16:pos + 18], "little") + 1
+        crc = int.from_bytes(raw[pos + bsize - 8:pos + bsize - 4], "little")
+        isize = int.from_bytes(raw[pos + bsize - 4:pos + bsize], "little")
+        out.append((raw[pos + 12 + xlen:pos + bsize - 8], isize, crc))
+        pos += bsize
+    return out
+
+
+def card_inflate_call(lib, device: int, blocks):
+    """A callable that runs ``sniper_card_inflate`` on ``blocks`` (the
+    loader's layout: streams one after another, outputs one after
+    another), and the buffers it fills: (call, status, out, out_off)."""
+    import numpy as np
+
+    comp = np.frombuffer(b"".join(b[0] for b in blocks), np.uint8)
+    in_len = np.array([len(b[0]) for b in blocks], np.int32)
+    in_off = np.concatenate(([0], np.cumsum(in_len)[:-1])).astype(np.int64)
+    isize = np.array([b[1] for b in blocks], np.int32)
+    out_off = np.concatenate(([0], np.cumsum(isize)[:-1])).astype(np.int64)
+    crc = np.array([b[2] for b in blocks], np.uint32)
+    out = np.zeros(int(isize.sum()), np.uint8)
+    status = np.full(len(blocks), -1, np.int32)
+
+    def call() -> int:
+        return lib.sniper_card_inflate(
+            device, comp.ctypes.data, len(comp), len(blocks),
+            in_off.ctypes.data, in_len.ctypes.data, isize.ctypes.data,
+            crc.ctypes.data, out.ctypes.data, out_off.ctypes.data,
+            status.ctypes.data)
+
+    return call, status, out, out_off
+
+
+def profiled_kernel_ms(fn, name: str, torch, reps: int = 5) -> float | None:
+    """Device milliseconds a launch of the kernel ``name`` over ``reps``
+    calls of ``fn``, read from torch.profiler (CUPTI sees every stream);
+    None ("not measured") where the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for row in prof.key_averages():
+        if name in row.key:
+            total_us += getattr(row, "device_time_total",
+                                getattr(row, "cuda_time_total", 0.0))
+            count += row.count
+    return total_us / count / 1e3 if count and total_us > 0 else None
+
+
+def inflate_on_card(dev, torch) -> tuple:
+    """Phase 20: ``sniper_card_inflate`` on every BGZF block of a 250 kb
+    window of the benchmark's generator at 30x (the region load's shape,
+    ~210 blocks of level-1 records), byte-equal to zlib, one launch a
+    call of at most 256 blocks, counted where it is made; timed beside
+    host zlib on one core, with the kernel's device time from the
+    profiler and its byte bound.  Returns (differing bytes, ms, plain_ms,
+    device_ms, plain_device_ms, bound_ms, bound_by, None) and the shape
+    (blocks, output bytes)."""
+    import zlib
+
+    import numpy as np
+
+    from somatic_sniper_tpu_torch.ops import build
+
+    d = DATA / "inflate_window"
+    if not (d / "tumor.bam").exists():
+        sys.path.insert(0, str(REPO / "benchmark"))
+        import pairgen
+
+        cfg = json.loads((REPO / "benchmark" / "configs" / "wgs30.json")
+                         .read_text())["data"]
+        pairgen.generate(d, {**cfg, **INFLATE_WINDOW}, INFLATE_SEED,
+                         workers=1)
+    blocks = [b for b in bgzf_blocks(d / "tumor.bam") if b[1] > 0]
+    want = [zlib.decompress(stream, -15) for stream, _, _ in blocks]
+    lib = build.load_library()
+    call, status, out, _ = card_inflate_call(lib, dev.index or 0, blocks)
+    n0 = lib.sniper_bgzf_inflate_launches()
+    rc = call()
+    launches = lib.sniper_bgzf_inflate_launches() - n0
+    if rc != 0 or (status != 0).any():
+        raise AssertionError(f"card inflate: rc {rc}, statuses "
+                             f"{sorted(set(status.tolist()))}")
+    ref = np.frombuffer(b"".join(want), np.uint8)
+    bad = int((out != ref).sum()) if len(ref) == len(out) else len(ref)
+    if bad:
+        raise AssertionError(f"card inflate: {bad} bytes differ from zlib")
+    if launches != -(-len(blocks) // 256):
+        raise AssertionError(f"card inflate: {len(blocks)} blocks in "
+                             f"{launches} launches")
+
+    def host_ms() -> float:
+        t = time.perf_counter()
+        for stream, _, _ in blocks:
+            zlib.decompress(stream, -15)
+        return (time.perf_counter() - t) * 1e3
+
+    def card_ms() -> float:
+        t = time.perf_counter()
+        if call() != 0:
+            raise AssertionError("card inflate failed")
+        return (time.perf_counter() - t) * 1e3
+
+    ms = statistics.median(card_ms() for _ in range(TIMED_REPEATS))
+    plain_ms = statistics.median(host_ms() for _ in range(TIMED_REPEATS))
+    dev_ms = profiled_kernel_ms(call, "bgzf_inflate_kernel", torch)
+    n_in = sum(len(b[0]) for b in blocks)
+    n_out = len(out)
+    bound, by = bound_ms(n_in + n_out, 0)
+    print(f"  bgzf_inflate {len(blocks)} blocks, {n_in} B in, {n_out} B out: "
+          f"byte-equal to zlib, {launches} launch(es); per call {ms:.3f} ms "
+          f"(staging, copies, kernel, wait), host zlib {plain_ms:.3f} ms; "
+          f"device: kernel {fmt_ms(dev_ms)}; bound {bound:.5f} ms by {by}",
+          flush=True)
+    if bound > min(x for x in (ms, dev_ms) if x is not None):
+        raise AssertionError("bgzf_inflate ran faster than its bound")
+    return (bad, ms, plain_ms, dev_ms, None, bound, by, None), (len(blocks),
+                                                               n_out)
+
+
+def check_card_inflate(stats: dict, what: str) -> int:
+    """A windowed run on the card inflated its region loads there: blocks
+    handed to the card, none refused, one launch or more a region of at
+    most 256 blocks (``launches_bgzf_inflate``, counted where the kernel
+    is launched).  Returns the launches."""
+    blocks = int(stats.get("native.blocks_card", 0))
+    redo = int(stats.get("native.blocks_card_redo", 0))
+    launches = int(stats.get("launches_bgzf_inflate", 0))
+    print(f"  {what}: card inflate {blocks} blocks, {redo} inflated again on "
+          f"the host, {launches} bgzf_inflate launches; host-inflated "
+          f"blocks {int(stats.get('native.blocks_zlib', 0))} (zlib), "
+          f"{int(stats.get('native.blocks_libdeflate', 0))} (libdeflate)",
+          flush=True)
+    if blocks <= 0 or redo or launches <= 0 or 256 * launches < blocks:
+        raise AssertionError(f"{what}: card inflate {blocks} blocks, {redo} "
+                             f"redone, {launches} launches")
+    return launches
 
 
 def cards() -> int:
@@ -2400,6 +2573,7 @@ def main() -> int:
     walls = {"fast": [run_cli([*fast, str(out_dir / "fast.vcf")])]}
     launches = dict(gk.LAUNCHES)
     stats = STATS.snapshot()
+    launches["bgzf_inflate"] = check_card_inflate(stats, "phase 4")
     # timed repeats, alternated on the same card: exact, fast, exact
     walls["exact"] = [run_cli([*exact, str(out_dir / "exact.vcf")])]
     STATS.reset()
@@ -2518,6 +2692,11 @@ def main() -> int:
     launches_nopf_split, _ = split_prefilter_off(pair, out_dir, fast_lines,
                                                  n_cols, dev)
 
+    phase("20 the card inflate at the region load's shape")
+    inflate_t, inflate_shape = inflate_on_card(dev, torch)
+    at_path["bgzf_inflate", inflate_shape] = inflate_t
+    errs["bgzf_inflate"] = inflate_t[0]
+
     # each kernel's launches from the phase that ran it, its times at
     # the main shape of its path (phase 8)
     runs = {
@@ -2529,6 +2708,7 @@ def main() -> int:
         "glfgen": (launches_u32, shapes["u32"][0]),
         "glfgen16": (launches_u16, shapes["u16"][0]),
         "score_columns": (launches, shapes["slab"][0]),
+        "bgzf_inflate": (launches, inflate_shape),
     }
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2580,10 +2760,12 @@ def main() -> int:
                           "split_2_graphed": launches_split_graphed,
                           "windows_prefilter_off_split": {
                               k: launches_nopf_split[k]
-                              for k in ("glfgen32", "score_columns")},
+                              for k in ("glfgen32", "score_columns",
+                                        "bgzf_inflate")},
                           "windows_prefilter_off": {
                               k: launches_nopf[k]
-                              for k in ("glfgen32", "score_columns")}}}),
+                              for k in ("glfgen32", "score_columns",
+                                        "bgzf_inflate")}}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -275,6 +275,8 @@ def get_lib():
         lib.sniper_load_counters.argtypes = [
             ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64),
         ]
+        lib.sniper_set_card_inflate.restype = None
+        lib.sniper_set_card_inflate.argtypes = [ctypes.c_void_p, ctypes.c_int]
         lib.sniper_last_error.restype = ctypes.c_char_p
         _lib = lib
         STATS.add_source(functools.partial(load_counters, lib))
@@ -283,7 +285,11 @@ def get_lib():
 
 LOAD_PHASES = ("read", "bgzf_scan", "inflate", "record_scan",
                "pileup_build", "pure_flags")
-INFLATE_COUNTERS = ("bytes_inflated", "blocks_libdeflate", "blocks_zlib")
+# blocks_card: blocks a region load handed to the card inflater;
+# blocks_card_redo: those of them the host inflated again (the card refused
+# them), which blocks_zlib or blocks_libdeflate count as well
+INFLATE_COUNTERS = ("bytes_inflated", "blocks_libdeflate", "blocks_zlib",
+                    "blocks_card", "blocks_card_redo")
 
 
 def load_counters(lib) -> tuple[dict[str, float], dict[str, int]]:
@@ -299,6 +305,17 @@ def load_counters(lib) -> tuple[dict[str, float], dict[str, int]]:
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def set_card_inflate(address: int | None, device: int = 0) -> None:
+    """Hand the region loads' BGZF blocks to the card inflater at
+    ``address`` (a C function with the signature of the kernels' library
+    ``sniper_card_inflate``), run on CUDA device ``device``; ``None``
+    inflates every block on the host again.  One setting for the
+    process."""
+    lib = get_lib()
+    if lib is not None:
+        lib.sniper_set_card_inflate(address, device)
 
 
 def _as_np(ptr, n, dtype):

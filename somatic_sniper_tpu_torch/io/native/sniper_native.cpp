@@ -59,13 +59,15 @@ static std::atomic<int64_t> g_prof[6];
 
 // Inflate counters, cumulative like g_prof: 0 bytes inflated, 1 blocks
 // inflated by libdeflate, 2 blocks inflated by zlib (the backend is
-// picked at run time, libdeflate_probe).  inflate_block counts into the
-// calling thread's tally; publish_inflate adds a thread's tally to the
-// globals, once per call (PublishInflate) and once per spawned worker.
-static std::atomic<int64_t> g_inflate[3];
+// picked at run time, libdeflate_probe), 3 blocks handed to a registered
+// card inflater (card_inflate), 4 of those the host inflated again.
+// inflate_block and card_inflate count into the calling thread's tally;
+// publish_inflate adds a thread's tally to the globals, once per call
+// (PublishInflate) and once per spawned worker.
+static std::atomic<int64_t> g_inflate[5];
 
 struct InflateTally {
-    int64_t bytes = 0, libdeflate = 0, zlib = 0;
+    int64_t bytes = 0, libdeflate = 0, zlib = 0, card = 0, card_redo = 0;
 };
 static thread_local InflateTally t_inflate;
 
@@ -74,6 +76,8 @@ static void publish_inflate() {
     if (t.bytes) g_inflate[0].fetch_add(t.bytes);
     if (t.libdeflate) g_inflate[1].fetch_add(t.libdeflate);
     if (t.zlib) g_inflate[2].fetch_add(t.zlib);
+    if (t.card) g_inflate[3].fetch_add(t.card);
+    if (t.card_redo) g_inflate[4].fetch_add(t.card_redo);
     t = InflateTally();
 }
 
@@ -240,6 +244,71 @@ static bool inflate_block(const uint8_t* src, int32_t src_len, uint8_t* dst,
     ++t_inflate.zlib;
     t_inflate.bytes += (int64_t)(dst_len - zsp->avail_out);
     return ret == Z_STREAM_END && zsp->avail_out == 0;
+}
+
+// A card inflater (the port's sniper_card_inflate), registered by the
+// windowed driver when its device is a card (sniper_set_card_inflate).
+// Block b's raw DEFLATE stream is in_len[b] bytes at comp + in_off[b];
+// its output (isize[b] bytes, CRC32 crc[b]) goes to out + out_off[b]
+// where status[b] comes back 0.  Returns 0, or nonzero (a CUDA error) when
+// the call failed as a whole.
+typedef int (*CardInflateFn)(int device, const void* comp, long long comp_len,
+                             int n_blocks, const void* in_off,
+                             const void* in_len, const void* isize,
+                             const void* crc, void* out, const void* out_off,
+                             void* status);
+static std::atomic<CardInflateFn> g_card_inflate{nullptr};
+static std::atomic<int> g_card_device{0};
+// Fewer blocks than this stay on the host: a card call waits about 5 ms
+// (one block's serial decode), which zlib matches at ~15 blocks of 64 KB
+// (0.34 ms a block; H100 host, PERF.md).
+static const int kCardMinBlocks = 16;
+
+// Hand a region's blocks (those with output) to the card inflater in one
+// call, and leave in ``blocks`` the ones the card refused, for the host to
+// inflate as it would without a card: a bad status, or a CRC32 or ISIZE
+// the output does not meet.  The CRC32 is the 4 bytes the BGZF trailer
+// holds right after the block's DEFLATE stream.  Fewer than
+// kCardMinBlocks blocks are all left to the host.  A call that fails as a
+// whole (a CUDA error) fails the load: false, with ``err`` set.
+static bool card_inflate(CardInflateFn fn, const std::vector<uint8_t>& comp,
+                         std::vector<BgzfBlock>& blocks, uint8_t* out,
+                         std::string& err) {
+    std::vector<BgzfBlock> sent;
+    for (const BgzfBlock& b : blocks)
+        if (b.out_size != 0) sent.push_back(b);
+    const int n = (int)sent.size();
+    if (n < kCardMinBlocks) return true;
+    std::vector<int64_t> in_off(n), out_off(n);
+    std::vector<int32_t> in_len(n), isize(n), status(n, -1);
+    std::vector<uint32_t> crc(n);
+    for (int i = 0; i < n; ++i) {
+        const BgzfBlock& b = sent[i];
+        in_off[i] = b.in_off;
+        in_len[i] = b.in_size;
+        out_off[i] = b.out_off;
+        isize[i] = b.out_size;
+        crc[i] = rd_u32(&comp[b.in_off + b.in_size]);
+    }
+    const int rc = fn(g_card_device.load(), comp.data(),
+                      (long long)comp.size(), n, in_off.data(),
+                      in_len.data(), isize.data(), crc.data(), out,
+                      out_off.data(), status.data());
+    if (rc != 0) {
+        err = "BGZF inflate failure (region, card: CUDA error " +
+              std::to_string(rc) + ")";
+        return false;
+    }
+    blocks.clear();
+    for (int i = 0; i < n; ++i) {
+        if (status[i] != 0)
+            blocks.push_back(sent[i]);
+        else
+            t_inflate.bytes += isize[i];
+    }
+    t_inflate.card += n;
+    t_inflate.card_redo += (int64_t)blocks.size();
+    return true;
 }
 
 static bool bgzf_decompress(const std::vector<uint8_t>& raw,
@@ -585,7 +654,9 @@ static int64_t rec_ref_span(const uint8_t* r) {
 // offsets (into ``all``) of records on ``tid`` overlapping [beg, end).
 // Chunk semantics follow vendor bam_index.c: a virtual offset packs
 // (compressed block offset << 16 | within-block offset); a chunk may
-// start/end mid-block.
+// start/end mid-block.  Every chunk is read and scanned first, then all
+// their blocks are inflated at once (one call to a card inflater, when
+// one is registered), then each chunk's records are collected.
 static bool region_scan(const char* path, const int64_t* chunks,
                         int64_t n_chunks, int32_t tid, int64_t beg,
                         int64_t end, int n_threads,
@@ -601,7 +672,27 @@ static bool region_scan(const char* path, const int64_t* chunks,
     if (n_threads < 1) n_threads = 1;
     libdeflate_probe();
     PublishInflate publish;
-    std::vector<uint8_t> comp;  // reused per chunk
+    // a chunk's place in ``all`` and where its records start and stop
+    struct ChunkSpan {
+        int64_t abase, total, last_block_usize, c_beg, c_end;
+        int32_t u_beg, u_end;
+    };
+    std::vector<ChunkSpan> spans;
+    std::vector<uint8_t> comp_all;   // every chunk's span, one after another
+    std::vector<BgzfBlock> blocks;   // in_off into comp_all, out_off into all
+    // one allocation each for the spans and the inflated bytes (a vector
+    // grown chunk by chunk doubles its capacity)
+    int64_t comp_bytes = 0;
+    for (int64_t ci = 0; ci < n_chunks; ++ci) {
+        const int64_t c_beg = chunks[2 * ci] >> 16;
+        const int64_t c_end = chunks[2 * ci + 1] >> 16;
+        const int64_t last = (chunks[2 * ci + 1] & 0xFFFF) ? c_end : c_end - 1;
+        const int64_t span_end = std::min(last + 0x10000 + 28, fsize);
+        if (span_end > c_beg) comp_bytes += span_end - c_beg;
+    }
+    comp_all.reserve((size_t)comp_bytes);
+    const int64_t all_base = (int64_t)all.size();
+    int64_t all_bytes = 0;
     for (int64_t ci = 0; ci < n_chunks; ++ci) {
         int64_t vbeg = chunks[2 * ci], vend = chunks[2 * ci + 1];
         int64_t c_beg = vbeg >> 16, c_end = vend >> 16;
@@ -616,23 +707,25 @@ static bool region_scan(const char* path, const int64_t* chunks,
         int64_t span_end = last_needed + 0x10000 + 28;
         if (span_end > fsize) span_end = fsize;
         if (span_end <= c_beg) continue;
-        comp.resize((size_t)(span_end - c_beg));
+        const int64_t cbase = (int64_t)comp_all.size();
+        comp_all.resize((size_t)(cbase + span_end - c_beg));
+        const uint8_t* comp = &comp_all[cbase];
+        const int64_t n_comp = span_end - c_beg;
         {
             ProfSpan ps(0);
             fseek(f, c_beg, SEEK_SET);
-            if (fread(comp.data(), 1, comp.size(), f) != comp.size()) {
+            if (fread(&comp_all[cbase], 1, n_comp, f) != (size_t)n_comp) {
                 err = "short read (region span)";
                 fclose(f);
                 return false;
             }
         }
         int64_t last_block_usize = 0;
-        std::vector<BgzfBlock> blocks;
         int64_t total = 0;
+        const int64_t abase = all_base + all_bytes;
         {
             ProfSpan ps(1);
             int64_t off = c_beg;
-            const int64_t n_comp = (int64_t)comp.size();
             while (off <= last_needed) {
                 const int64_t rel = off - c_beg;
                 if (rel + 18 > n_comp || comp[rel] != 0x1f ||
@@ -654,42 +747,59 @@ static bool region_scan(const char* path, const int64_t* chunks,
                 if (rel + bsize > n_comp || comp_size < 0) break;
                 int32_t isize =
                     (int32_t)rd_u32(&comp[rel + bsize - 4]);
-                blocks.push_back(
-                    {rel + 12 + xlen, comp_size, total, isize, off});
+                blocks.push_back({cbase + rel + 12 + xlen, comp_size,
+                                  abase + total, isize, off});
                 total += isize;
                 if (off == c_end) last_block_usize = isize;
                 off += bsize;
             }
         }
-        const int64_t abase = (int64_t)all.size();
-        all.resize((size_t)(abase + total));
-        std::atomic<size_t> next(0);
-        std::atomic<bool> ok(true);
-        auto worker = [&]() {
-            for (;;) {
-                size_t i = next.fetch_add(1);
-                if (i >= blocks.size()) break;
-                const BgzfBlock& b = blocks[i];
-                if (b.out_size == 0) continue;
-                if (!inflate_block(&comp[b.in_off], b.in_size,
-                                   &all[abase + b.out_off], b.out_size))
-                    ok.store(false);
-            }
-        };
-        {
-            ProfSpan ps(2);
-            std::vector<std::thread> ts;
-            for (int t = 1;
-                 t < n_threads && (size_t)t < blocks.size(); ++t)
-                ts.emplace_back([&]() { worker(); publish_inflate(); });
-            worker();
-            for (auto& t : ts) t.join();
-        }
-        if (!ok.load()) {
-            err = "BGZF inflate failure (region)";
+        all_bytes += total;
+        spans.push_back({abase, total, last_block_usize, c_beg, c_end, u_beg,
+                         u_end});
+    }
+    all.resize((size_t)(all_base + all_bytes));
+    // with a card inflater registered, the host inflates only the blocks
+    // the card refused
+    if (CardInflateFn card = g_card_inflate.load()) {
+        ProfSpan ps(2);
+        if (!card_inflate(card, comp_all, blocks, all.data(), err)) {
             fclose(f);
             return false;
         }
+    }
+    std::atomic<size_t> next(0);
+    std::atomic<bool> ok(true);
+    auto worker = [&]() {
+        for (;;) {
+            size_t i = next.fetch_add(1);
+            if (i >= blocks.size()) break;
+            const BgzfBlock& b = blocks[i];
+            if (b.out_size == 0) continue;
+            if (!inflate_block(&comp_all[b.in_off], b.in_size,
+                               &all[b.out_off], b.out_size))
+                ok.store(false);
+        }
+    };
+    {
+        ProfSpan ps(2);
+        std::vector<std::thread> ts;
+        for (int t = 1; t < n_threads && (size_t)t < blocks.size(); ++t)
+            ts.emplace_back([&]() { worker(); publish_inflate(); });
+        worker();
+        for (auto& t : ts) t.join();
+    }
+    if (!ok.load()) {
+        err = "BGZF inflate failure (region)";
+        fclose(f);
+        return false;
+    }
+    fclose(f);
+    for (const ChunkSpan& c : spans) {
+        const int64_t abase = c.abase, total = c.total;
+        const int64_t last_block_usize = c.last_block_usize;
+        const int64_t c_beg = c.c_beg, c_end = c.c_end;
+        const int32_t u_beg = c.u_beg, u_end = c.u_end;
         // collect records in [u_beg, end-of-chunk minus trailing cut)
         ProfSpan ps3(3);
         int64_t p = abase + u_beg;
@@ -705,7 +815,6 @@ static bool region_scan(const char* path, const int64_t* chunks,
             if (p + 4 + bs > n) break;  // record clipped by chunk end
             if (bs < 32 || !record_layout_ok(&all[p + 4], bs)) {
                 err = "truncated or corrupt BAM record";
-                fclose(f);
                 return false;
             }
             const uint8_t* r = &all[p + 4];
@@ -720,7 +829,6 @@ static bool region_scan(const char* path, const int64_t* chunks,
             p += 4 + bs;
         }
     }
-    fclose(f);
     return true;
 }
 
@@ -1446,12 +1554,20 @@ NativePileup* bam_load_region_pileup(
 
 // The load counters since the library was loaded, read without reset:
 // seconds[6] <- {read, bgzf_scan, inflate, record_scan, pileup_build,
-// pure_flags}, summed over threads; counts[3] <- {bytes_inflated,
-// blocks_libdeflate, blocks_zlib}.
+// pure_flags}, summed over threads; counts[5] <- {bytes_inflated,
+// blocks_libdeflate, blocks_zlib, blocks_card, blocks_card_redo}.
 void sniper_load_counters(double* seconds, int64_t* counts) {
     for (int i = 0; i < 6; ++i)
         seconds[i] = (double)g_prof[i].load() * 1e-9;
-    for (int i = 0; i < 3; ++i) counts[i] = g_inflate[i].load();
+    for (int i = 0; i < 5; ++i) counts[i] = g_inflate[i].load();
+}
+
+// Register the card inflater the region loads hand their BGZF blocks to
+// (a CardInflateFn, called with ``device``), or, with NULL, none: every
+// block is then inflated on the host.  The whole-file load never uses it.
+void sniper_set_card_inflate(void* fn, int device) {
+    g_card_device.store(device);
+    g_card_inflate.store(reinterpret_cast<CardInflateFn>(fn));
 }
 
 void pileup_destroy(NativePileup* np) {

@@ -25,6 +25,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+from ..utils.stats import STATS
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
@@ -214,7 +216,29 @@ SIGNATURES: dict[str, tuple[list, object]] = {
     "sniper_empty_launch": ([_I, _I, _P], _I),
     # code
     "sniper_cuda_error_string": ([_I], ctypes.c_char_p),
+    # device, comp, comp_len, n_blocks, in_off, in_len, isize, crc, out,
+    # out_off, status
+    "sniper_card_inflate": ([_I, _P, _LL, _I] + [_P] * 7, _I),
+    # (none)
+    "sniper_bgzf_inflate_launches": ([], _LL),
 }
+
+_inflate_counted = False
+
+
+def card_inflate_address() -> int:
+    """Address of ``sniper_card_inflate``, for the native loader's
+    ``sniper_set_card_inflate``; builds the library on first use.  From
+    then on ``STATS`` counts the kernel's launches as
+    ``launches_bgzf_inflate``."""
+    global _inflate_counted
+    lib = load_library()
+    with _lock:
+        if not _inflate_counted:
+            STATS.add_source(lambda: ({}, {
+                "launches_bgzf_inflate": lib.sniper_bgzf_inflate_launches()}))
+            _inflate_counted = True
+    return ctypes.cast(lib.sniper_card_inflate, ctypes.c_void_p).value
 
 
 def load_library() -> ctypes.CDLL:

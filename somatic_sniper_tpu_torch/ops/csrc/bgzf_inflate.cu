@@ -1,0 +1,276 @@
+// bgzf_inflate: the BGZF blocks of a region load inflated on the card, a
+// warp a block (the decoder and its design: bgzf_inflate.cuh).
+//
+// sniper_card_inflate is what the native loader calls, through the
+// pointer the windowed driver registers with it (sniper_set_card_inflate):
+// it stages one call's blocks in pinned memory, copies them up, inflates,
+// copies the outputs and statuses back and waits, all on the calling
+// thread's own stream.  The loader's pool threads call it at once, each
+// with its own stream, event and buffers, so their copies and kernels
+// overlap on the card; a thread that exits hands its buffers to the next
+// one (a process-wide free list), so a new pool pins nothing anew.  The
+// wait blocks on an event made with cudaEventBlockingSync: the host's
+// cores, not the card, set the pace, and a spinning wait would take one of
+// them from every waiting thread.  The first CUDA error ends the card's
+// part: it is returned by that call and by every later one, which then
+// stage nothing.
+
+#include <cuda_runtime.h>
+
+#include <algorithm>
+#include <atomic>
+#include <cstring>
+#include <mutex>
+#include <vector>
+
+#include "bgzf_inflate.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(32)
+    bgzf_inflate_kernel(const uint8_t* in, const long long* in_off,
+                        const int* in_len, uint8_t* out,
+                        const long long* out_off, const int* isize,
+                        const unsigned* crc, int* status) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int b = blockIdx.x;
+  bgzf::inflate_warp(in + in_off[b], in_len[b], out + out_off[b], isize[b],
+                     crc[b], status + b,
+                     *reinterpret_cast<bgzf::Smem*>(smem), threadIdx.x);
+}
+
+// One calling thread's stream, event and buffers, on one device.  Sizes:
+// a region load of the windowed driver (~210 blocks, ~6.5 MB in, ~14 MB
+// out) fits one batch; a larger call runs in several.
+constexpr int kBatchBlocks = 256;
+constexpr size_t kCapIn = 8u << 20;
+constexpr size_t kCapOut = (size_t)kBatchBlocks * bgzf::kMaxOut;
+// descriptors: in_off, out_off (i64), in_len, isize, crc, status (i32)
+constexpr size_t kDescBytes = (size_t)kBatchBlocks * (8 + 8 + 4 + 4 + 4 + 4);
+
+std::atomic<long long> g_launches{0};  // kernel launches, for the counters
+std::atomic<int> g_error{0};           // the first CUDA error, then kept
+
+struct Stage {
+  int device = -1;
+  cudaStream_t stream = nullptr;
+  cudaEvent_t done = nullptr;
+  uint8_t *h_in = nullptr, *h_out = nullptr, *h_desc = nullptr;
+  uint8_t *d_in = nullptr, *d_out = nullptr, *d_desc = nullptr;
+};
+
+std::mutex g_free_mu;
+std::vector<Stage*> g_free;  // never freed: a process keeps its stages
+
+struct StageHolder {
+  Stage* s = nullptr;
+  ~StageHolder() {
+    if (s) {
+      std::lock_guard<std::mutex> lk(g_free_mu);
+      g_free.push_back(s);
+    }
+  }
+};
+thread_local StageHolder t_stage;
+
+void free_stage(Stage* s) {
+  if (s->stream) cudaStreamDestroy(s->stream);
+  if (s->done) cudaEventDestroy(s->done);
+  if (s->h_in) cudaFreeHost(s->h_in);
+  if (s->h_out) cudaFreeHost(s->h_out);
+  if (s->h_desc) cudaFreeHost(s->h_desc);
+  if (s->d_in) cudaFree(s->d_in);
+  if (s->d_out) cudaFree(s->d_out);
+  if (s->d_desc) cudaFree(s->d_desc);
+  delete s;
+}
+
+cudaError_t make_stage(int device, Stage** out) {
+  Stage* s = new Stage();
+  s->device = device;
+  cudaError_t e;
+  if ((e = cudaStreamCreateWithFlags(&s->stream, cudaStreamNonBlocking)) ||
+      (e = cudaEventCreateWithFlags(
+           &s->done, cudaEventBlockingSync | cudaEventDisableTiming)) ||
+      (e = cudaMallocHost(&s->h_in, kCapIn)) ||
+      (e = cudaMallocHost(&s->h_out, kCapOut)) ||
+      (e = cudaMallocHost(&s->h_desc, kDescBytes)) ||
+      (e = cudaMalloc(&s->d_in, kCapIn)) ||
+      (e = cudaMalloc(&s->d_out, kCapOut)) ||
+      (e = cudaMalloc(&s->d_desc, kDescBytes))) {
+    free_stage(s);  // the call fails, and with it the load
+    return e;
+  }
+  *out = s;
+  return cudaSuccess;
+}
+
+// The calling thread's stage on ``device``: its own, one from the free
+// list, or a new one.
+cudaError_t stage_for(int device, Stage** out) {
+  Stage*& mine = t_stage.s;
+  if (mine && mine->device != device) {
+    std::lock_guard<std::mutex> lk(g_free_mu);
+    g_free.push_back(mine);
+    mine = nullptr;
+  }
+  if (!mine) {
+    std::lock_guard<std::mutex> lk(g_free_mu);
+    for (size_t i = 0; i < g_free.size(); ++i) {
+      if (g_free[i]->device == device) {
+        mine = g_free[i];
+        g_free.erase(g_free.begin() + i);
+        break;
+      }
+    }
+  }
+  if (!mine) {
+    cudaError_t e = make_stage(device, &mine);
+    if (e != cudaSuccess) {
+      mine = nullptr;
+      return e;
+    }
+  }
+  *out = mine;
+  return cudaSuccess;
+}
+
+// A batch's descriptors, one array each, carved from one buffer.
+struct Desc {
+  long long *ioff, *ooff;
+  int *ilen, *isize;
+  unsigned* crc;
+  int* st;
+};
+
+Desc carve(uint8_t* base) {
+  Desc d;
+  d.ioff = reinterpret_cast<long long*>(base);
+  d.ooff = d.ioff + kBatchBlocks;
+  d.ilen = reinterpret_cast<int*>(d.ooff + kBatchBlocks);
+  d.isize = d.ilen + kBatchBlocks;
+  d.crc = reinterpret_cast<unsigned*>(d.isize + kBatchBlocks);
+  d.st = reinterpret_cast<int*>(d.crc + kBatchBlocks);
+  return d;
+}
+
+inline size_t round16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+cudaError_t launch(const uint8_t* in, const long long* in_off,
+                   const int* in_len, uint8_t* out, const long long* out_off,
+                   const int* isize, const unsigned* crc, int* status, int n,
+                   cudaStream_t stream) {
+  if (n <= 0) return cudaSuccess;
+  const int smem = (int)sizeof(bgzf::Smem);
+  cudaError_t e = cudaFuncSetAttribute(
+      bgzf_inflate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  bgzf_inflate_kernel<<<n, 32, smem, stream>>>(in, in_off, in_len, out,
+                                               out_off, isize, crc, status);
+  if ((e = cudaGetLastError()) == cudaSuccess) g_launches.fetch_add(1);
+  return e;
+}
+
+}  // namespace
+
+// sniper_card_inflate's work, on the calling thread's stage.
+static cudaError_t inflate_blocks(int device, const void* comp,
+                                  long long comp_len, int n_blocks,
+                                  const void* in_off, const void* in_len,
+                                  const void* isize, const void* crc,
+                                  void* out, const void* out_off,
+                                  void* status) {
+  const uint8_t* src = static_cast<const uint8_t*>(comp);
+  const long long* ioff = static_cast<const long long*>(in_off);
+  const int* ilen = static_cast<const int*>(in_len);
+  const int* osize = static_cast<const int*>(isize);
+  const unsigned* bcrc = static_cast<const unsigned*>(crc);
+  const long long* ooff = static_cast<const long long*>(out_off);
+  uint8_t* dst = static_cast<uint8_t*>(out);
+  int* st = static_cast<int*>(status);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  Stage* s;
+  if ((e = stage_for(device, &s)) != cudaSuccess) return e;
+  const Desc h = carve(s->h_desc), d = carve(s->d_desc);
+  int b = 0;
+  while (b < n_blocks) {
+    // fill a batch: blocks past the BGZF ceilings, or outside comp, are
+    // left to the caller's host inflate
+    int n = 0;
+    std::vector<int> which;
+    size_t in_used = 0, out_used = 0;
+    for (; b < n_blocks && n < kBatchBlocks; ++b) {
+      if (ilen[b] < 0 || ilen[b] > bgzf::kMaxIn || osize[b] < 0 ||
+          osize[b] > bgzf::kMaxOut || ioff[b] < 0 ||
+          ioff[b] + ilen[b] > comp_len) {
+        st[b] = bgzf::kTooLarge;
+        continue;
+      }
+      const size_t need_in = round16((size_t)ilen[b]);
+      const size_t need_out = round16((size_t)osize[b]);
+      if (in_used + need_in > kCapIn || out_used + need_out > kCapOut) break;
+      std::memcpy(s->h_in + in_used, src + ioff[b], (size_t)ilen[b]);
+      h.ioff[n] = (long long)in_used;
+      h.ooff[n] = (long long)out_used;
+      h.ilen[n] = ilen[b];
+      h.isize[n] = osize[b];
+      h.crc[n] = bcrc[b];
+      which.push_back(b);
+      in_used += need_in;
+      out_used += need_out;
+      ++n;
+    }
+    if (n == 0) continue;
+    // the descriptors up to the statuses, which the kernel writes
+    const size_t desc = (uint8_t*)h.st - s->h_desc;
+    if ((e = cudaMemcpyAsync(s->d_desc, s->h_desc, desc,
+                             cudaMemcpyHostToDevice, s->stream)) ||
+        (e = cudaMemcpyAsync(s->d_in, s->h_in, in_used,
+                             cudaMemcpyHostToDevice, s->stream)) ||
+        (e = launch(s->d_in, d.ioff, d.ilen, s->d_out, d.ooff, d.isize, d.crc,
+                    d.st, n, s->stream)) ||
+        (e = cudaMemcpyAsync(s->h_out, s->d_out, out_used,
+                             cudaMemcpyDeviceToHost, s->stream)) ||
+        (e = cudaMemcpyAsync(h.st, d.st, (size_t)n * 4,
+                             cudaMemcpyDeviceToHost, s->stream)) ||
+        (e = cudaEventRecord(s->done, s->stream)) ||
+        (e = cudaEventSynchronize(s->done)))
+      return e;
+    for (int i = 0; i < n; ++i) {
+      st[which[i]] = h.st[i];
+      if (h.st[i] == bgzf::kOk)
+        std::memcpy(dst + ooff[which[i]], s->h_out + h.ooff[i],
+                    (size_t)h.isize[i]);
+    }
+  }
+  return cudaSuccess;
+}
+
+// Host buffers in, host buffers out: block b's stream is in_len[b] bytes at
+// comp + in_off[b], its output goes to out + out_off[b] (isize[b] bytes,
+// written only where status[b] is 0).  Returns 0, or the CUDA error that
+// stopped this call or an earlier one (the statuses are then not all
+// written, and the caller fails its load).
+extern "C" int sniper_card_inflate(int device, const void* comp,
+                                   long long comp_len, int n_blocks,
+                                   const void* in_off, const void* in_len,
+                                   const void* isize, const void* crc,
+                                   void* out, const void* out_off,
+                                   void* status) {
+  if (const int failed = g_error.load()) return failed;
+  const cudaError_t e =
+      inflate_blocks(device, comp, comp_len, n_blocks, in_off, in_len, isize,
+                     crc, out, out_off, status);
+  if (e != cudaSuccess) {
+    int none = 0;
+    g_error.compare_exchange_strong(none, (int)e);
+  }
+  return (int)e;
+}
+
+// Launches of bgzf_inflate_kernel since the library was loaded, counted
+// where they are made (the port's STATS read it as launches_bgzf_inflate).
+extern "C" long long sniper_bgzf_inflate_launches() {
+  return g_launches.load();
+}

@@ -149,6 +149,17 @@ class _QuirkCarry:
         return best
 
 
+def _card_inflate_on(dev):
+    """``dev``; a CUDA device also takes the region loads' BGZF blocks
+    (the kernels' ``sniper_card_inflate``, registered with the native
+    loader)."""
+    if dev.type == "cuda":
+        from ..ops import build
+
+        native.set_card_inflate(build.card_inflate_address(), dev.index)
+    return dev
+
+
 def call_pair_windows(
     tumor_bam: str,
     normal_bam: str,
@@ -177,7 +188,9 @@ def call_pair_windows(
         require_native("the windowed driver (region loads)")
         if device is None and (precision == "fast" or not ref_fasta):
             raise ValueError(f"{precision} precision needs a device here")
-        dev = functools.cache(lambda: resolve_device(device))
+        # the region loads inflate on the card once this call has one
+        native.set_card_inflate(None)
+        dev = functools.cache(lambda: _card_inflate_on(resolve_device(device)))
         if precision == "fast":
             dev()  # a missing card fails the run before any load
         header = read_bam_header(tumor_bam)
@@ -266,10 +279,20 @@ def call_pair_windows(
         done = Future()
         n_landed = [0]
         cb_lock = threading.Lock()
+        # the loads' callbacks refer back to the loads: taken out once read,
+        # so that a window's pileups go with its last reference rather than
+        # wait for the cyclic collector
+        loads = [f_t, f_n]
+
+        def _results():
+            try:
+                return loads[0].result(), loads[1].result()
+            finally:
+                loads.clear()
 
         def _plan_task():
             try:
-                pu_t, pu_n = f_t.result(), f_n.result()
+                pu_t, pu_n = _results()
                 plan = None
                 if can_exact_native(pu_t, pu_n, ref_blob):
                     with STATS.context(window=wi):
@@ -282,7 +305,7 @@ def call_pair_windows(
 
         def _resolve_loads():
             try:
-                done.set_result((f_t.result(), f_n.result(), None))
+                done.set_result((*_results(), None))
             except BaseException as e:
                 done.set_exception(e)
 

@@ -26,7 +26,8 @@ import pytest
 
 pytest.importorskip("torch")
 
-from somatic_sniper_tpu_torch.io import native  # noqa: E402
+from somatic_sniper_tpu_torch.io import native, native_api  # noqa: E402
+from somatic_sniper_tpu_torch.parallel import sharded  # noqa: E402
 from somatic_sniper_tpu_torch.parallel.sharded import (  # noqa: E402
     call_pair_windows, genome_windows)
 from somatic_sniper_tpu_torch.utils import stats  # noqa: E402
@@ -67,14 +68,38 @@ def _n_windows(data_dir):
                               .ref_lengths, WINDOW))
 
 
+def _hold_loads_until_waited(monkeypatch) -> threading.Event:
+    """Hold the pool's region loads until the main thread waits on one,
+    so that it blocks (``load_wait.block``) however fast the loads are;
+    the event is set once it has."""
+    waited = threading.Event()
+    load, wait = native_api.load_region_and_columnize, sharded.futures_wait
+
+    def held_load(*args, **kw):
+        if threading.current_thread() is not threading.main_thread():
+            waited.wait(60)
+        return load(*args, **kw)
+
+    def marked_wait(*args, **kw):
+        waited.set()
+        return wait(*args, **kw)
+
+    monkeypatch.setattr(native_api, "load_region_and_columnize", held_load)
+    monkeypatch.setattr(sharded, "futures_wait", marked_wait)
+    return waited
+
+
 @pytest.mark.parametrize("pool", ["2", "4"])
 def test_load_spans_per_call(monkeypatch, data_dir, pool):
     """Two region loads a window, one set-up a call; each span within the
     one it is nested in, the pool's busy time within its open time, the
     native phases within the loads, on a narrow pool (plan on the main
-    thread) and a wide one (plan on the pool)."""
+    thread) and a wide one (plan on the pool).  The loads are held until
+    the main thread waits on one."""
     monkeypatch.setenv("SNIPER_LOAD_POOL", pool)
+    waited = _hold_loads_until_waited(monkeypatch)
     _, d, calls = _run(data_dir)
+    assert waited.is_set()
     n = _n_windows(data_dir)
     assert calls["load.region"] == 2 * n
     assert calls["load.carry"] == 2       # both samples at ctg2's start
@@ -127,13 +152,17 @@ def _harness():
     return mod
 
 
-def test_harness_host_spans_records_the_load_spans(data_dir):
+def test_harness_host_spans_records_the_load_spans(data_dir, monkeypatch):
     """The benchmark's ``host_spans`` swaps ``STATS.timer`` for a
     one-argument wrapper: the new spans pass through it, from the main
-    thread and the pool's."""
+    thread and the pool's.  The pool's loads are held until the main
+    thread waits on one, so that it blocks (``load_wait.block``) however
+    fast the loads are."""
+    waited = _hold_loads_until_waited(monkeypatch)
     run = _harness()
     with run.host_spans(STATS, True) as spans:
         lines, _, _ = _run(data_dir)
+    assert waited.is_set()
     names = {n for n, _, _ in spans}
     assert {"load.region", "load.carry", "load_wait.block",
             "driver.open", "load_wait"} <= names
