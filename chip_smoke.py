@@ -148,7 +148,26 @@ closing ``{"ok": true, ...}`` line is never printed):
     250 kb window of the benchmark's generator at 30x (~210 blocks)
     through ``sniper_card_inflate``, byte-equal to zlib, one launch;
     its call ms beside host zlib's, its device ms (torch.profiler) and
-    its byte bound in the ``kernels`` line.
+    its byte bound in the ``kernels`` line;
+21. the ``deep300`` configuration's pair (1 Mb at 300x a sample, the
+    benchmark's generator) through the windowed driver, fast on the
+    card: every survivor scored on the card in a slab deeper than 255
+    (``device_columns_deep`` = ``device_columns`` = ``columns_scored``,
+    ``host_deep_columns`` 0), every slab replayed, the second fast
+    run's launches ``accumulate`` = ``assembly10`` = 2 x slabs and
+    ``score_columns`` = slabs (launch counters reset before it), and the
+    records within the fast contract of the native exact run;
+22. the deep slab step's kernels at the shapes phase 21 ran (phase 8's
+    ``kernels_at_path_shapes``, family ``deep``): ``accumulate`` over raw
+    kept-only lanes with ``n_keep`` as the depth, ``assembly10`` after
+    the c_tot > 255 rescale with the D-deep tables, and ``score_columns``
+    with the dqstats over every lane, each against its plain version on
+    columns 256-D deep and timed; the ``kernels`` line gives them under
+    ``deep_slab`` in the ``accumulate``, ``assembly10`` and
+    ``score_columns`` entries, with phase 21's launches.
+
+``python3 chip_smoke.py --deep`` runs phases 1, 2, 17 at the slab tiers
+from 255 up, 21 and 22.
 
 Its first statements make ``import jax`` and ``import somatic_sniper_tpu``
 fail, so a pass also shows that the port needs neither; it imports only
@@ -847,6 +866,90 @@ def path_shapes(stats: dict, prefix: str, B_of) -> list[tuple[int, int]]:
                                             key=lambda kv: -kv[1])]
 
 
+def deep_slab_lanes(B: int, D: int, seed: int):
+    """Raw kept-only lanes of one sample, every column 256-D reads deep
+    (so every class total takes the c_tot > 255 rescale): the first half
+    drawn like random_slab_lanes (every base code, every mapQ, some zero
+    base qualities), the second half with base qualities 2-9, mapQ 60 and
+    the reads split between the reference base and one other, which
+    leaves likelihoods strictly between 0 and 255.  Returns (slots int32
+    [B, D], n_keep int32 [B], ref16 int32 [B])."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nk = rng.integers(256, D + 1, B).astype(np.int32)
+    ref16 = rng.choice([1, 2, 4, 8], size=B).astype(np.int32)
+    base = rng.choice([1, 2, 4, 8, 15, 5, 0], size=(B, D),
+                      p=[.3, .25, .2, .13, .04, .04, .04]).astype(np.uint32)
+    baseq = np.where(rng.random((B, D)) < 0.05, 0,
+                     rng.integers(0, 94, (B, D))).astype(np.uint32)
+    mapq = rng.integers(0, 256, (B, D)).astype(np.uint32)
+    half = B // 2
+    alt = np.roll(ref16, 1)[half:, None].astype(np.uint32)
+    frac = rng.uniform(0.2, 0.8, (B - half, 1))
+    base[half:] = np.where(rng.random((B - half, D)) < frac, alt,
+                           ref16[half:, None].astype(np.uint32))
+    baseq[half:] = rng.integers(2, 10, (B - half, D))
+    mapq[half:] = 60
+    strand = rng.integers(0, 2, (B, D)).astype(np.uint32)
+    words = mapq | (baseq << 8) | (base << 16) | (strand << 20)
+    slots = np.where(np.arange(D)[None, :] < nk[:, None], words, 0)
+    return slots.astype(np.uint32).view(np.int32), nk, ref16
+
+
+def deep_slab_cases(B: int, D: int, dtabs, dev, torch) -> dict:
+    """The deep slab step's kernels at (B, D), D > 255, as the captured
+    step runs them a sample: ``accumulate`` over raw kept-only lanes with
+    ``n_keep`` as the depth (c, rms and n equal to the plain version, the
+    sums within check_sums, a second launch the same bits), then
+    ``assembly10`` on its sums after the c_tot > 255 rescale, with the
+    D-deep tables (lk and min_lk equal to the plain version, the error
+    word 0).  Returns {name: Case}."""
+    from somatic_sniper_tpu_torch.models.glfgen import rescale_counts
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+
+    w = dtabs.fk_weights
+    s, nk, r = (torch.from_numpy(a).to(dev)
+                for a in deep_slab_lanes(B, D, seed=D + 3))
+    k = gk.accumulate(s, nk, r, w, 60)
+    p = gk.accumulate_plain(s, nk, r, w, 60)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(k[2:], p[2:])):
+        raise AssertionError(f"deep accumulate c/rms/n differ at {(B, D)}")
+    err = check_sums("accumulate", k, p, (B, D), torch)
+    k2 = gk.accumulate(s, nk, r, w, 60)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(k, k2)):
+        raise AssertionError(f"two deep accumulate launches differ at "
+                             f"{(B, D)}")
+    rescaled = rescale_counts(k[2])
+    tables = dtabs.assembly_tables(D)
+    args = (k[0], k[1], rescaled, k[4], *tables)
+    lk, mlk, flag = gk.assembly10_flagged(*args)
+    lk_p, mlk_p = gk.assembly10_plain(*args)
+    torch.cuda.synchronize()
+    if int(flag[0]) or not (torch.equal(lk, lk_p)
+                            and torch.equal(mlk, mlk_p)):
+        raise AssertionError(f"deep assembly10 differs at {(B, D)} (error "
+                             f"word {int(flag[0])})")
+    mid = int(((lk > 0) & (lk < 255)).any(dim=1).sum())
+    print(f"  deep step B={B} D={D}: accumulate and assembly10 equal to "
+          f"their plain versions, {int((k[2].sum(dim=1) > 255).sum())} "
+          f"columns rescaled, {mid} with a likelihood strictly between 0 "
+          "and 255", flush=True)
+    lanes, taken = int(nk.sum()), int(k[2].sum())
+    return {
+        "accumulate": Case(
+            err, lambda: gk.accumulate(s, nk, r, w, 60),
+            lambda: gk.accumulate_plain(s, nk, r, w, 60),
+            rank_bound(lanes, 4, B, 2, 14, taken)),
+        "assembly10": Case(
+            float((lk - lk_p).abs().max()), lambda: gk.assembly10(*args),
+            lambda: gk.assembly10_plain(*args), assembly_bound(B, tables),
+            launch=lambda: gk.assembly10_launch(*args)),
+    }
+
+
 def kernels_at_path_shapes(shapes: dict, dtabs, dev, torch,
                            floor_ms: float) -> dict:
     """Phase 8: every kernel against its plain version at every shape its
@@ -855,7 +958,8 @@ def kernels_at_path_shapes(shapes: dict, dtabs, dev, torch,
     family's shapes (a u16 shape overwrites an equal u32 one: both
     score without dqstats), at the main shape also with joint priors
     (named ``score_columns/joint``).  ``shapes`` maps a family
-    ("slab", "u32", "u16") to its shapes.  Returns {(name, shape):
+    ("slab", "u32", "u16", or "deep": the slab step above D 255,
+    deep_slab_cases) to its shapes.  Returns {(name, shape):
     (max_abs_err, ms, plain_ms, device_ms, plain_device_ms, bound_ms,
     bound_by) or (max_abs_err,)}."""
     family = {"slab": None, "u32": ("accumulate",), "u16": ("accumulate16",)}
@@ -863,10 +967,14 @@ def kernels_at_path_shapes(shapes: dict, dtabs, dev, torch,
     out = {}
     for fam, fam_shapes in shapes.items():
         for i, (B, D) in enumerate(fam_shapes):
-            cases = (slab_cases(B, D, dtabs, dev, torch) if fam == "slab"
-                     else rank_cases(B, D, dtabs, dev, torch, family[fam]))
+            if fam == "slab":
+                cases = slab_cases(B, D, dtabs, dev, torch)
+            elif fam == "deep":
+                cases = deep_slab_cases(B, D, dtabs, dev, torch)
+            else:
+                cases = rank_cases(B, D, dtabs, dev, torch, family[fam])
             # the dqstats ride only on the slab's raw lanes
-            dq = fam == "slab"
+            dq = fam in ("slab", "deep")
             cases["score_columns"] = score_case(B, D, dev, torch, dq=dq)
             for name, case in cases.items():
                 if i == 0:
@@ -1714,23 +1822,41 @@ def check_graphed(stats: dict, what: str) -> None:
 def random_packed_slab(B: int, D: int, seed: int):
     """A two-sample slab in the layout of ``io.native_api
     .slab_fill_pair``: (stacked uint32 [2, B, D], meta int32 [3, B]),
-    the raw depth one more than the kept lanes where any are kept."""
+    the raw depth one more than the kept lanes where any are kept, to
+    D; depths and kept counts in bytes to D = 255, in 16-bit halves of
+    meta[1] and meta[2] deeper."""
     import numpy as np
 
     s_t, nk_t, ref16 = random_slab_lanes(B, D, seed)
     s_n, nk_n, _ = random_slab_lanes(B, D, seed + 1000)
-    d_t, d_n = nk_t + (nk_t > 0), nk_n + (nk_n > 0)
+    d_t = np.minimum(nk_t + (nk_t > 0), D).astype(np.uint32)
+    d_n = np.minimum(nk_n + (nk_n > 0), D).astype(np.uint32)
+    nk_t, nk_n = nk_t.astype(np.uint32), nk_n.astype(np.uint32)
     meta = np.zeros((3, B), np.uint32)
     meta[0] = ref16.astype(np.uint32) << 24
-    meta[2] = (d_t.astype(np.uint32) | d_n.astype(np.uint32) << 8
-               | nk_t.astype(np.uint32) << 16 | nk_n.astype(np.uint32) << 24)
+    if D <= 255:
+        meta[2] = d_t | d_n << 8 | nk_t << 16 | nk_n << 24
+    else:
+        meta[1] = d_t | d_n << 16
+        meta[2] = nk_t | nk_n << 16
     return (np.stack([s_t, s_n]).view(np.uint32), meta.view(np.int32))
 
 
-def graphed_against_eager(dev, torch, B: int = 8192) -> None:
+def slab_step_launches(D: int) -> dict:
+    """The kernel launches of one slab step at depth D: the fused
+    glfgen32 a sample to 255; deeper, the accumulate and assembly10 a
+    sample (the c_tot > 255 rescale between them); score_columns once."""
+    if D <= 255:
+        return {"glfgen32": 2, "score_columns": 1}
+    return {"accumulate": 2, "assembly10": 2, "score_columns": 1}
+
+
+def graphed_against_eager(dev, torch, B: int = 8192,
+                          depths=None) -> None:
     """Phase 17: the captured step against the eager step at every slab
-    depth, both priors, two input sets back to back, B columns a slab;
-    each key's device operations an eager step and its replay ms."""
+    depth (``depths``, by default ``ALLOWED_D``), both priors, two input
+    sets back to back, B columns a slab; each key's device operations an
+    eager step and its replay ms."""
     from somatic_sniper_tpu_torch.models.somatic import call_batch_packed
     from somatic_sniper_tpu_torch.models.step_graph import STEP_GRAPHS
     from somatic_sniper_tpu_torch.models.tables import (ModelParams,
@@ -1743,7 +1869,7 @@ def graphed_against_eager(dev, torch, B: int = 8192) -> None:
     for joint in (False, True):
         params = ModelParams(use_joint_priors=joint, min_somatic_qual=0)
         dtabs = device_tables(build_tables(params), dev, "fast")
-        for D in ALLOWED_D:
+        for D in depths or ALLOWED_D:
             known = set(STEP_GRAPHS.captures())
             emitted = []
             for seed in (D, D + 1):
@@ -1758,8 +1884,9 @@ def graphed_against_eager(dev, torch, B: int = 8192) -> None:
                 gk.reset_launches()
                 n, rows = STEP_GRAPHS.run(stacked_h, meta_h, dtabs, params,
                                           dev)
-                if (dict(gk.LAUNCHES) != eager or eager["glfgen32"] != 2
-                        or eager["score_columns"] != 1):
+                if (dict(gk.LAUNCHES) != eager
+                        or {k: v for k, v in eager.items() if v}
+                        != slab_step_launches(D)):
                     raise AssertionError(
                         f"launches: eager {eager}, graphed {gk.LAUNCHES}")
                 if (n != n_e or rows.tobytes() != rows_e.tobytes()
@@ -1784,7 +1911,7 @@ def graphed_against_eager(dev, torch, B: int = 8192) -> None:
                   f"{1e3 * next(iter(new.values())):.1f} ms (two eager "
                   f"warm-up steps included); two input sets, {emitted} "
                   "rows, count and rows byte-equal to the eager step, "
-                  f"glfgen32 twice and score_columns once each way; "
+                  f"launches {slab_step_launches(D)} each way; "
                   f"{ops} device operations an eager step, replay "
                   f"{replay_ms:.4f} ms (queued in {replay_q:.4f}); "
                   f"torch-op step "
@@ -2327,6 +2454,163 @@ def check_card_inflate(stats: dict, what: str) -> int:
     return launches
 
 
+# the deep300 configuration's pair (benchmark/configs/deep300.json),
+# made once
+DEEP_SEED = 2**31 + 21
+
+
+def deep_pair_windows(dev) -> tuple[dict, dict]:
+    """Phase 21: the ``deep300`` configuration's pair (1 Mb at 300x a
+    sample, the benchmark's generator) through ``call_pair_windows`` in
+    fast precision on the card, at the configuration's flags and the
+    CLI's default window, twice: every survivor scored on the card in a
+    slab deeper than 255 (``device_columns_deep`` = ``device_columns`` =
+    ``columns_scored``, none on the host's exact scorer), every slab
+    replayed from its captured step, the second run's launches
+    (counters reset before it) ``accumulate`` = ``assembly10`` = 2 x
+    slabs and ``score_columns`` = slabs and no other, and the records
+    within the fast contract of the native exact run of the same windows.
+    Returns the second fast run's (STATS deltas, launches)."""
+    sys.path.insert(0, str(REPO / "benchmark"))
+    import pairgen
+    import run as harness
+
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+    from somatic_sniper_tpu_torch.parallel.sharded import call_pair_windows
+    from somatic_sniper_tpu_torch.utils.contract import diff_records, hist
+    from somatic_sniper_tpu_torch.utils.stats import STATS
+
+    cfg = json.loads((REPO / "benchmark" / "configs" / "deep300.json")
+                     .read_text())
+    d = DATA / "deep300"
+    t0 = time.perf_counter()
+    if not (d / "normal.bam.bai").exists():
+        pairgen.generate(d, cfg["data"], DEEP_SEED)
+    args, params = harness.program_params(cfg["flags"])
+    pair = (str(d / "tumor.bam"), str(d / "normal.bam"), str(d / "ref.fa"))
+    print(f"  deep300 pair ready in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def lines_of(precision):
+        out = []
+        for _wi, _w, ls in call_pair_windows(
+                *pair, fmt="vcf", params=params, precision=precision,
+                window_size=int(args.window_size), device=dev):
+            out.extend(ls)
+        return out
+
+    walls = {}
+    for turn in (1, 2):
+        s0 = STATS.snapshot()
+        gk.reset_launches()
+        t0 = time.perf_counter()
+        fast = lines_of("fast")
+        walls[f"fast_{turn}"] = time.perf_counter() - t0
+        s1 = STATS.snapshot()
+        launches = {k: v for k, v in gk.LAUNCHES.items() if v}
+    stats = {k: v - s0.get(k, 0) for k, v in s1.items()
+             if v - s0.get(k, 0)}
+    t0 = time.perf_counter()
+    exact = lines_of("exact")
+    walls["exact"] = time.perf_counter() - t0
+    n = {k: int(stats.get(k, 0)) for k in (
+        "columns_scored", "device_columns", "device_columns_deep",
+        "host_deep_columns", "host_tail_columns", "slabs_dispatched",
+        "slabs_graphed", "slab_bytes_uploaded")}
+    depths = {k: int(v) for k, v in stats.items()
+              if k.startswith("slabs_at_depth_")}
+    slabs = n["slabs_dispatched"]
+    print(f"  deep300 on {dev}: {json.dumps(n)}, slabs by depth "
+          f"{json.dumps(depths)}, launches {json.dumps(launches)}; walls "
+          f"(s) {json.dumps({k: round(v, 3) for k, v in walls.items()})}",
+          flush=True)
+    if (n["columns_scored"] <= 0 or slabs <= 0
+            or n["device_columns_deep"] != n["device_columns"]
+            or n["device_columns"] != n["columns_scored"]
+            or n["host_deep_columns"] or n["host_tail_columns"]
+            or n["slabs_graphed"] != slabs
+            or any(int(k.rpartition("_")[2]) <= 255 for k in depths)):
+        raise AssertionError(f"deep300: the survivors were not scored on "
+                             f"the card in deep slabs: {n}, {depths}")
+    if launches != {"accumulate": 2 * slabs, "assembly10": 2 * slabs,
+                    "score_columns": slabs}:
+        raise AssertionError(f"deep300: {slabs} slabs launched {launches}")
+    tolerated = diff_records(fast, exact, "vcf")
+    print(f"  deep300: {len(fast)} records, within the fast contract of "
+          f"the native exact run; hist {json.dumps(hist(tolerated))}",
+          flush=True)
+    return stats, launches
+
+
+def deep_kernels(stats: dict, dev, torch, floor_ms: float) -> dict:
+    """Phase 22: kernels_at_path_shapes over the slab shapes phase 21 ran
+    (family ``deep``).  Returns its {(name, shape): ...}."""
+    from somatic_sniper_tpu_torch.models.tables import (ModelParams,
+                                                        build_tables,
+                                                        device_tables)
+    from somatic_sniper_tpu_torch.parallel.slab import slab_b
+
+    shapes = {"deep": path_shapes(stats, "slabs_at_depth_",
+                                  lambda n: slab_b())}
+    print(f"  deep slab shapes, most-used first: {json.dumps(shapes)}",
+          flush=True)
+    dtabs = device_tables(build_tables(ModelParams()), dev)
+    return kernels_at_path_shapes(shapes, dtabs, dev, torch, floor_ms)
+
+
+def launch_floor_ms(dev, torch) -> float:
+    """Queued ms of FLOOR_GRID's empty kernel.  It never waits: a timing
+    whose spin ran out before the host had queued the launches is the
+    host's hiccup, measured again."""
+    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
+
+    for _ in range(3):
+        floor_ms = queued_ms(lambda: gk.empty_launch(*FLOOR_GRID, dev), torch)
+        if floor_ms is not None:
+            return floor_ms
+    raise AssertionError("the empty kernel's launches waited three times")
+
+
+def deep() -> int:
+    """``python3 chip_smoke.py --deep``: phases 1-2, phase 17 at the slab
+    tiers from 255 up, 21 and 22."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    from somatic_sniper_tpu_torch.device import resolve_device
+    from somatic_sniper_tpu_torch.io import native
+    from somatic_sniper_tpu_torch.ops import build
+    from somatic_sniper_tpu_torch.parallel.slab import ALLOWED_D
+
+    t_start = time.perf_counter()
+    phase("1 card")
+    card = card_line()
+    print(card, flush=True)
+    dev = resolve_device("cuda")
+    phase("2 build")
+    if native.get_lib() is None:
+        raise AssertionError("the port's native host library did not build")
+    build.build()
+    build.load_library()
+    floor_ms = launch_floor_ms(dev, torch)
+    phase("17 the captured step against the eager one, deep tiers")
+    graphed_against_eager(dev, torch,
+                          depths=[D for D in ALLOWED_D if D >= 255])
+    phase("21 the deep300 pair, fast on the card vs exact")
+    stats, _ = deep_pair_windows(dev)
+    phase("22 the deep slab step's kernels at phase 21's shapes")
+    deep_kernels(stats, dev, torch, floor_ms)
+    print(f"  --deep wall {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def cards() -> int:
     """``python3 chip_smoke.py --cards``, on a machine with two cards or
     more: the split over distinct cards, which the one-card smoke runs
@@ -2519,14 +2803,7 @@ def main() -> int:
               f"{use.get('spill_bytes', 0)} bytes spilled, "
               f"{use['smem_bytes']} bytes of static shared memory",
               flush=True)
-    # the empty kernel never waits: a timing whose spin ran out before
-    # the host had queued the launches is the host's hiccup, measured again
-    for _ in range(3):
-        floor_ms = queued_ms(lambda: gk.empty_launch(*FLOOR_GRID, dev), torch)
-        if floor_ms is not None:
-            break
-    else:
-        raise AssertionError("the empty kernel's launches waited three times")
+    floor_ms = launch_floor_ms(dev, torch)
     print(f"  {card}: launch floor {floor_ms:.4f} ms (an empty kernel "
           f"of {FLOOR_GRID[0]} blocks of {FLOOR_GRID[1]} threads, "
           f"{TIMED_RUNS} queued back to back)", flush=True)
@@ -2696,6 +2973,14 @@ def main() -> int:
     inflate_t, inflate_shape = inflate_on_card(dev, torch)
     at_path["bgzf_inflate", inflate_shape] = inflate_t
     errs["bgzf_inflate"] = inflate_t[0]
+    phase("21 the deep300 pair, fast on the card vs exact")
+    stats_deep, launches_deep = deep_pair_windows(dev)
+    phase("22 the deep slab step's kernels at phase 21's shapes")
+    at_deep = deep_kernels(stats_deep, dev, torch, floor_ms)
+    for (name, _), t in at_deep.items():
+        errs[name.split("/")[0]] = max(errs[name.split("/")[0]], t[0])
+    deep_shape = next(sh for (name, sh), t in at_deep.items()
+                      if name == "accumulate" and len(t) > 1)
 
     # each kernel's launches from the phase that ran it, its times at
     # the main shape of its path (phase 8)
@@ -2732,6 +3017,17 @@ def main() -> int:
                  "ms": t[1], "device_ms": t[3], **t[7]}
                 for (k, sh), t in at_path.items()
                 if k.partition("/")[0] == name and len(t) > 1]
+        if name in ("accumulate", "assembly10", "score_columns"):
+            # the slab step above D 255 (phases 21 and 22)
+            _, d_ms, d_pms, d_dms, d_pdms, d_bound, d_by, _ = \
+                at_deep[name, deep_shape]
+            extra["deep_slab"] = {
+                "launches": launches_deep.get(name, 0),
+                "shape": list(deep_shape), "ms": d_ms, "plain_ms": d_pms,
+                "device_ms": d_dms, "plain_device_ms": d_pdms,
+                "bound_ms": d_bound, "bound_by": d_by,
+                "bound_share_of_device_ms": (None if d_dms is None
+                                             else d_bound / d_dms)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[fused_as or name],
@@ -2814,6 +3110,9 @@ if __name__ == "__main__":
         sys.exit(cards())
     if sys.argv[1:] == ["--score-sweep"]:
         sys.exit(score_sweep())
+    if sys.argv[1:] == ["--deep"]:
+        sys.exit(deep())
     if sys.argv[1:]:
-        sys.exit("usage: python3 chip_smoke.py [--cards | --score-sweep]")
+        sys.exit("usage: python3 chip_smoke.py [--cards | --score-sweep | "
+                 "--deep]")
     sys.exit(main())

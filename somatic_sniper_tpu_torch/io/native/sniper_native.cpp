@@ -1800,6 +1800,9 @@ static inline void raw_lanes_one(const NativePileup* np, int64_t ci,
 // (models/somatic.py call_batch_packed raw32 layout: meta0 carries only
 // the reference code; rms moved on-device) in one internally-threaded
 // pass.
+// Depths and kept counts take bytes of meta2 to D = 255; a deeper slab
+// takes the wide layout, 16-bit halves of meta1 (d_t | d_n << 16) and of
+// meta2 (nk_t | nk_n << 16), its values at most D <= 65535.
 void slab_fill_pair(const NativePileup* t, const NativePileup* n,
                     const int64_t* ti, const int64_t* ni,
                     const int32_t* ref16, const int32_t* d_t,
@@ -1818,6 +1821,12 @@ void slab_fill_pair(const NativePileup* t, const NativePileup* n,
                                  ((uint32_t)d_n[b] << 8) |
                                  ((uint32_t)nk_t << 16) |
                                  ((uint32_t)nk_n << 24));
+            if (D > 255) {
+                meta1[b] = (int32_t)((uint32_t)d_t[b] |
+                                     ((uint32_t)d_n[b] << 16));
+                meta2[b] = (int32_t)((uint32_t)nk_t |
+                                     ((uint32_t)nk_n << 16));
+            }
         }
     };
     // Fill threading (SNIPER_FILL_THREADS overrides): since the raw-

@@ -16,6 +16,10 @@ from ..pileup.columnize import ColumnarPileup
 from .bam import BamHeader
 from . import native
 
+# deepest slab slab_fill_pair fills: its wide metadata layout keeps
+# depths and kept counts in 16 bits (models.somatic.MAX_D)
+SLAB_MAX_D = 0xFFFF
+
 
 def available() -> bool:
     return native.available()
@@ -272,6 +276,9 @@ def slab_fill_pair(
     the caller's slab buffers (see slab_fill_pair in the native source;
     layout contract: models/somatic.py call_batch_packed raw32).  All
     output views must be C-contiguous."""
+    if not 1 <= D <= SLAB_MAX_D:
+        raise ValueError(f"slab depth D={D} outside [1, {SLAB_MAX_D}]: the "
+                         "packed metadata holds depths in 16 bits")
     lib = pu_t.owner._lib
     B = len(ti)
     for a in (out_t, out_n, meta0, meta1, meta2):

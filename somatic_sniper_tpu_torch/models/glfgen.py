@@ -7,16 +7,18 @@ on the card with plain torch versions on the CPU.  The kernel follows
 the batch's slot encoding, and to depth 255 the two steps are one launch:
 
 * raw kept-only int32 lanes with ``n_keep`` -> ``glfgen32``
-  (``accumulate32`` above depth 255, which no slab reaches);
+  (``accumulate`` with ``n_keep`` as the depth above 255: a slab of a
+  deep tier, ``parallel/slab.ALLOWED_D``; kept-only lanes hold no
+  deletion, so it counts what ``accumulate32`` would);
 * compact u16 lanes with ``n_keep`` and ``rms_sum`` -> ``glfgen16``
   (``accumulate16``);
 * full u32 slot words with ``depth`` -> ``glfgen_u32`` (``accumulate``).
 
-Batches deeper than 255 take the accumulate alone, rescale their class
-counts (reference sniper_maqcns.c:178-182) and run ``assembly10`` with
-the full tables; its error word (a count outside the tables) is left on
-the device in ``GlfResult.err`` for the caller to read with the step's
-results, so the step never waits.
+Batches and slabs deeper than 255 take the accumulate alone, rescale
+their class counts (reference sniper_maqcns.c:178-182) and run
+``assembly10`` with the full tables; its error word (a count outside
+the tables) is left on the device in ``GlfResult.err`` for the caller to
+read with the step's results, so the step never waits.
 
 Exact precision (:105-198, :441-451, :579-756 with ``acc_f`` float64)
 replicates the reference's mixed float/double arithmetic bit for bit in
@@ -34,8 +36,8 @@ import numpy as np
 import torch
 
 from ..ops.glfgen_kernels import (MAX_D, accumulate, accumulate16,
-                                  accumulate32, assembly10_flagged, glfgen16,
-                                  glfgen32, glfgen_u32)
+                                  assembly10_flagged, glfgen16, glfgen32,
+                                  glfgen_u32)
 from .tables import DeviceTables
 
 F32 = torch.float32
@@ -189,9 +191,9 @@ def _glfgen_fast(cols: ColumnBatch, dtabs: DeviceTables, cap_mapq: int):
                                             lhet_sub, cap_mapq)
     else:
         if enc == "raw32":
-            esum, fsum, c, rms = accumulate32(cols.slots, cols.n_keep,
-                                              cols.ref16, w, cap_mapq)
-            n = cols.n_keep
+            # kept-only lanes: the first n_keep, none a deletion
+            esum, fsum, c, rms, n = accumulate(cols.slots, cols.n_keep,
+                                               cols.ref16, w, cap_mapq)
         elif enc == "u16":
             esum, fsum, c = accumulate16(cols.slots, cols.n_keep, w)
             rms, n = cols.rms_sum, cols.n_keep

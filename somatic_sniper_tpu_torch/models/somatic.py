@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..io.native_api import SLAB_MAX_D as MAX_D
 from ..ops.score_kernels import ScoredColumns, score_columns
 # parts of the plain version, re-exported under the names the JAX
 # package gives them here
@@ -28,8 +29,14 @@ from .tables import DeviceTables, ModelParams
 
 I32 = torch.int32
 
-# the packed slab metadata carries depths and counts in bytes
-MAX_D = 255
+# the packed slab metadata carries depths and kept counts in bytes to
+# depth MAX_D_NARROW, and in 16-bit halves of meta[1] and meta[2] above
+# it, to MAX_D (the native fill's bound).  The byte layout is the JAX
+# package's packed layout: the tests hold both packages' native fills and
+# packed entries to each other on one slab (tests/test_torch_host_layer.py,
+# tests/test_torch_somatic.py), and utils/mfu.bench_kernel builds it.
+# Both layouts upload the same three words a column.
+MAX_D_NARROW = 255
 
 
 class CallResult(NamedTuple):
@@ -201,21 +208,29 @@ def packed_column_batches(stacked, meta) -> tuple[ColumnBatch, ColumnBatch]:
     device the slab lies on.
 
     ``stacked`` [2, B, D] int32 raw kept-only lanes (tumor, normal);
-    ``meta`` [3, B] int32 with ``meta[0] = ref16 << 24`` and
-    ``meta[2] = d_t | d_n << 8 | nk_t << 16 | nk_n << 24`` (meta[1] is
-    unused by the raw-lane layout).  Layout contract of
-    io.native_api.slab_fill_pair."""
+    ``meta`` [3, B] int32 with ``meta[0] = ref16 << 24``.  To depth
+    ``MAX_D_NARROW`` (255) ``meta[2] = d_t | d_n << 8 | nk_t << 16 |
+    nk_n << 24`` and meta[1] is unused; deeper, to ``MAX_D`` (65535),
+    ``meta[1] = d_t | d_n << 16`` and ``meta[2] = nk_t | nk_n << 16``.
+    Layout contract of io.native_api.slab_fill_pair."""
     if stacked.dim() != 3 or stacked.shape[0] != 2:
         raise ValueError(f"stacked: expected [2, B, D], got "
                          f"{tuple(stacked.shape)}")
-    if stacked.shape[2] > MAX_D:
+    D = stacked.shape[2]
+    if D > MAX_D:
         raise ValueError(
-            f"packed metadata requires D <= {MAX_D}, got {stacked.shape[2]}")
+            f"packed metadata requires D <= {MAX_D}, got {D}")
     ref16 = (meta[0] >> 24) & 0xF
-    d_t = meta[2] & 0xFF
-    d_n = (meta[2] >> 8) & 0xFF
-    nk_t = (meta[2] >> 16) & 0xFF
-    nk_n = (meta[2] >> 24) & 0xFF
+    if D <= MAX_D_NARROW:
+        d_t = meta[2] & 0xFF
+        d_n = (meta[2] >> 8) & 0xFF
+        nk_t = (meta[2] >> 16) & 0xFF
+        nk_n = (meta[2] >> 24) & 0xFF
+    else:
+        d_t = meta[1] & 0xFFFF
+        d_n = (meta[1] >> 16) & 0xFFFF
+        nk_t = meta[2] & 0xFFFF
+        nk_n = (meta[2] >> 16) & 0xFFFF
     return (ColumnBatch(slots=stacked[0], depth=d_t, ref16=ref16,
                         n_keep=nk_t),
             ColumnBatch(slots=stacked[1], depth=d_n, ref16=ref16,
@@ -225,7 +240,9 @@ def packed_column_batches(stacked, meta) -> tuple[ColumnBatch, ColumnBatch]:
 def call_batch_packed(stacked, meta, dtabs: DeviceTables,
                       params: ModelParams) -> CompactResult:
     """Fast-path entry over one packed slab (layout of
-    packed_column_batches); every emitted row fits (K = B)."""
+    packed_column_batches); every emitted row fits (K = B).  A slab
+    deeper than 255 takes the c_tot > 255 rescale (``glfgen_batch``),
+    and the result's ``err`` must then be read with its rows."""
     cb_t, cb_n = packed_column_batches(stacked, meta)
     return call_batch_compact(cb_t, cb_n, dtabs, params,
                               max_emit=stacked.shape[1])

@@ -174,6 +174,8 @@ class CapturedStep:
                                     pin_memory=pin)
         self._rows_h = torch.empty(self.rows.shape, dtype=torch.int32,
                                    pin_memory=pin)
+        self._err_h = torch.empty(self.err.shape, dtype=torch.int32,
+                                  pin_memory=pin)
         if pin:
             torch.cuda.synchronize(device)
         self.capture_s = time.perf_counter() - t0
@@ -201,11 +203,19 @@ class CapturedStep:
 
     def fetch(self) -> tuple[int, np.ndarray]:
         """(count, rows[:count]) of the last replay, as numpy, after one
-        wait for the current stream."""
+        wait for the current stream.  The error word comes home with
+        them: set (a slab deeper than 255 whose rescaled class counts
+        fell outside the assembly tables), it raises the stand-alone
+        ``assembly10``'s ValueError, as ``runner.collect_pending`` does
+        for a batch."""
         self._count_h.copy_(self.count, non_blocking=True)
+        self._err_h.copy_(self.err, non_blocking=True)
         self._rows_h.copy_(self.rows, non_blocking=True)
         if self.device.type == "cuda":
             _current_stream(self.device).synchronize()
+        from ..runner import _raise_on_count_error
+
+        _raise_on_count_error([int(self._err_h)], [self.stacked.shape[2]])
         n = int(self._count_h)
         return n, self._rows_h[:n].numpy().copy()
 

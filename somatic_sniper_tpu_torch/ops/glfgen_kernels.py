@@ -31,7 +31,9 @@ from ..models.tables import MAX_W
 F32 = torch.float32
 I32 = torch.int32
 U16 = torch.uint16
-MAX_D = 255  # depth bound of the packed slab metadata
+# deepest batch of the fused kernels and accumulate32: the class totals
+# index the tables without the c_tot > 255 rescale
+MAX_D = 255
 MAX_RANK_D = 1 << 24  # depth bound of accumulate / accumulate16
 # the c_tot > 255 rescale (models.glfgen.rescale_counts) can round four
 # exact halves up to a total of 256; the full-depth tables take it
@@ -164,7 +166,12 @@ def accumulate32(slots, n_keep, ref16, weights, cap_mapq: int):
     ``weights`` the f32[256] rank-weight table
     (models.tables.fk_weights_f32).  Returns (esum f32[B,4],
     fsum f32[B,4], c i32[B,4], rms i32[B]); c and rms are exact, the
-    sums agree with the plain version to f32 summation order."""
+    sums agree with the plain version to f32 summation order.
+
+    No path launches it (slabs take ``glfgen32`` to D 255 and
+    ``accumulate`` deeper): it is ``glfgen32``'s first half on its own,
+    which the card tests and chip_smoke hold to its plain version and
+    time beside the fused kernel."""
     if slots.dim() != 2:
         raise ValueError(f"slots: expected [B, D], got {tuple(slots.shape)}")
     B, D = slots.shape

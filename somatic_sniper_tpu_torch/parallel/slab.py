@@ -50,8 +50,9 @@ import numpy as np
 import torch
 
 from ..io.native_api import exact_pair_rows, slab_fill_pair
-from ..models.somatic import (COMPACT_FIELDS, MAX_D, call_batch_packed,
-                              compact_rows, packed_column_batches)
+from ..models.somatic import (COMPACT_FIELDS, MAX_D, MAX_D_NARROW,
+                              call_batch_packed, compact_rows,
+                              packed_column_batches)
 from ..models.step_graph import SLAB, STEP_GRAPHS
 from ..output.dqstats import get_dqstats_rows
 from ..utils.stats import STATS
@@ -59,8 +60,16 @@ from ..utils.stats import STATS
 # Allowed slab depths: a coarse ladder so that nearby datasets (two
 # pairs at 30x, say) land on the SAME shape.  48 exists because ~30x
 # data (the dominant production coverage) has a dmax p99.5 of ~45-47:
-# the 32->64 jump overshot pad/upload/kernel volume by a third.
-ALLOWED_D = (16, 32, 48, 64, 128)
+# the 32->64 jump overshot pad/upload/kernel volume by a third.  255 is
+# the deepest slab of the byte-wide metadata and the fused glfgen32;
+# the tiers above it (deep capture panels: a 300x pair's dmax p99.5 is
+# ~350, a 700x tumor's ~770) take the wide metadata and the c_tot > 255
+# rescale on the card (models/somatic.py packed_column_batches,
+# models/glfgen.py).
+ALLOWED_D = (16, 32, 48, 64, 128, 255, 384, 512, 768, 1024)
+# the depth histogram's last bin counts every column deeper than the
+# deepest tier
+HIST_TOP = ALLOWED_D[-1] + 1
 # A slab spanning many windows lands its results in a burst, the burst's
 # emit work stalls the bounded load prefetch, and the loaders idle: wall
 # follows the landing CADENCE, not the dispatch count.  8192 is about
@@ -100,14 +109,16 @@ def choose_d(dmax: np.ndarray) -> int | None:
     if len(dmax) == 0:
         return None
     hist = np.bincount(
-        np.minimum(np.asarray(dmax, np.int64), 256), minlength=257
+        np.minimum(np.asarray(dmax, np.int64), HIST_TOP),
+        minlength=HIST_TOP + 1,
     )
     return choose_d_hist(hist)
 
 
 def choose_d_hist(hist: np.ndarray) -> int | None:
     """choose_d over an accumulated depth histogram (values clipped to
-    256); same quantile semantics as np.quantile(..., method="lower")."""
+    HIST_TOP); same quantile semantics as np.quantile(...,
+    method="lower")."""
     n = int(hist.sum())
     if n == 0:
         return None
@@ -213,7 +224,7 @@ class TorchSlabDispatcher:
         # the histogram; one later upgrade is allowed when the host-deep
         # fraction shows the pick was unrepresentative
         self._staged: list = []        # (ws, plan) awaiting D
-        self._dhist = np.zeros(257, np.int64)
+        self._dhist = np.zeros(HIST_TOP + 1, np.int64)
         self._total_cols = 0
         self._deep_cols = 0
         self._windows_seen = 0
@@ -251,7 +262,8 @@ class TorchSlabDispatcher:
         if n:
             dmax = np.maximum(plan.d_t, plan.d_n)
             self._dhist += np.bincount(
-                np.minimum(dmax.astype(np.int64), 256), minlength=257
+                np.minimum(dmax.astype(np.int64), HIST_TOP),
+                minlength=HIST_TOP + 1,
             )
             self._windows_seen += 1
             self._plan_cols += n
@@ -346,7 +358,8 @@ class TorchSlabDispatcher:
             print(
                 f"somatic_sniper_tpu_torch: {100 * frac:.1f}% of survivor "
                 f"columns exceed the slab depth D={self.D} and are "
-                "scored host-side", file=sys.stderr, flush=True,
+                f"scored host-side (the deepest slab tier is "
+                f"{ALLOWED_D[-1]})", file=sys.stderr, flush=True,
             )
         if (
             self._upgraded
@@ -376,9 +389,10 @@ class TorchSlabDispatcher:
             ti = np.ascontiguousarray(plan.ti[sel])
             ni = np.ascontiguousarray(plan.ni[sel])
             # one fused native call pads BOTH samples and assembles the
-            # bit-packed metadata (models.somatic.call_batch_packed
-            # layout: rms_sum < 255*cap^2 < 2^24 for D <= 255, ref16 on
-            # bits 24-27 of row 0), internally threaded
+            # bit-packed metadata (models.somatic.packed_column_batches:
+            # depths and kept counts in bytes to D = 255, in 16-bit
+            # halves deeper; ref16 on bits 24-27 of row 0), internally
+            # threaded
             slab_fill_pair(
                 ws.pu_t, ws.pu_n, ti, ni, ref16,
                 plan.d_t[sel], plan.d_n[sel], self.D,
@@ -469,8 +483,12 @@ class TorchSlabDispatcher:
         self.queue.append((self.segs, fut, slab))
         STATS.add("slabs_dispatched", 1)
         STATS.add("device_columns", self.fill)
+        if self.D > MAX_D_NARROW:
+            STATS.add("device_columns_deep", self.fill)
+        # the lanes and metadata the slab's upload carries, padding
+        # included
         STATS.add(
-            "device_upload_bytes",
+            "slab_bytes_uploaded",
             self.stacked_h.nbytes + self.meta_h.nbytes,
         )
         self._alloc()
@@ -499,7 +517,7 @@ class TorchSlabDispatcher:
             self._in_flight.release()
 
     def _score_slab(self, stacked_h, meta_h):
-        from ..runner import data_mesh, dtabs_for
+        from ..runner import _raise_on_count_error, data_mesh, dtabs_for
 
         dtabs = self.dtabs_fn()
         graphs = STEP_GRAPHS
@@ -548,9 +566,13 @@ class TorchSlabDispatcher:
                     stacked_h.view(np.int32)), torch.from_numpy(meta_h),
                     dtabs, self.params)
             count = res.count.to("cpu")
+            err = res.err.to("cpu")
             rows = res.rows.to("cpu")
             if self._stream is not None:
                 self._stream.synchronize()
+        # a deep slab's error word, read with its rows (the captured
+        # step's fetch reads its own)
+        _raise_on_count_error([int(err)], [stacked_h.shape[2]])
         n = int(count)
         return n, rows[:n].numpy()
 

@@ -21,7 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_port_util import (SCORE_PAD,  # noqa: E402
+from tests.torch_port_util import (SCORE_PAD, deep_raw32,  # noqa: E402
                                    filtered_lines, hazard_column,
                                    random_raw32, random_slab, random_stacked,
                                    random_u32, score_inputs, to_packed16)
@@ -935,11 +935,12 @@ def test_score_columns_unaligned_lanes_on_card(dev, offset, D, use_joint):
 
 
 @pytest.mark.parametrize("use_joint", [False, True])
-@pytest.mark.parametrize("D", [256, 600])
+@pytest.mark.parametrize("D", [256, 600, 384, 512, 1024])
 def test_score_columns_direct_rows_on_card(dev, D, use_joint):
     """Rows read from device memory by their thread: deeper than the copy
     to shared memory takes (256, and 600, whose packed sums flush three
-    chunks of 255 lanes)."""
+    chunks of 255 lanes; 384, 512 and 1024, slab tiers above 255, with
+    the dqstats over all their lanes)."""
     for B in (SCORE_BLOCK + 1, 1000):
         _check_score_columns(dev, B, D, use_joint)
 
@@ -1028,3 +1029,161 @@ def test_eager_slab_step_device_operations_on_card(dev, use_joint):
                 if gk.LAUNCHES[k] != before[k]}
     assert launched == {"glfgen32": 2, "score_columns": 1}
     assert n_ops + sum(launched.values()) < 40
+
+
+# -- slabs deeper than 255 ---------------------------------------------------
+
+@pytest.mark.parametrize("D", [384, 512, 1024])
+def test_deep_glfgen_equals_plain_on_card(dev, D):
+    """The deep slab step's glfgen on the card (``accumulate`` with
+    ``n_keep`` as the depth, the c_tot > 255 rescale, ``assembly10``):
+    counts, rms and read counts equal the plain accumulate's, the class
+    sums agree to f32 summation order, and the ten likelihoods equal the
+    plain rescale and assembly over the kernel's sums bit for bit, at
+    columns 256-D deep, half of them with likelihoods strictly between 0
+    and 255; the error word stays 0; one accumulate and one assembly10
+    launch a sample."""
+    from somatic_sniper_tpu_torch.models import glfgen as mg
+
+    dtabs = device_tables(T.build_tables(T.ModelParams()), dev)
+    slots, nk, ref16 = deep_raw32(1024, D, D)
+    s, n, r = (torch.from_numpy(a).to(dev)
+               for a in (slots.view(np.int32), nk, ref16))
+    cols = mg.ColumnBatch(slots=s, depth=n, ref16=r, n_keep=n)
+    before = dict(gk.LAUNCHES)
+    lk, n_out, err = mg.glfgen_lk(cols, dtabs, 60)
+    launched = {k: gk.LAUNCHES[k] - before[k] for k in before
+                if gk.LAUNCHES[k] != before[k]}
+    assert launched == {"accumulate": 1, "assembly10": 1}
+    k = gk.accumulate(s, n, r, dtabs.fk_weights, 60)
+    p = gk.accumulate_plain(s, n, r, dtabs.fk_weights, 60)
+    for a, b in zip(k[2:], p[2:]):
+        assert torch.equal(a, b)
+    _assert_sums(k, p, D)
+    want, _ = gk.assembly10_plain(k[0], k[1], mg.rescale_counts(k[2]), n,
+                                  *dtabs.assembly_tables(D))
+    torch.cuda.synchronize()
+    assert int(err[0]) == 0 and torch.equal(n_out, n)
+    assert torch.equal(lk, want)
+    assert int(((lk > 0) & (lk < 255)).any(dim=1).sum()) >= 256
+
+
+@pytest.mark.parametrize("use_joint", [False, True])
+@pytest.mark.parametrize("D", [255, 384, 512, 1024])
+def test_graphed_deep_step_equals_eager_on_card(dev, D, use_joint):
+    """The captured step at the slab tiers from 255 up (the wide
+    metadata and the rescale above it), two input sets back to back:
+    count and rows byte-equal to the eager step, and a replay counts the
+    eager step's launches."""
+    from somatic_sniper_tpu_torch.models.step_graph import SlabStepGraph
+    from somatic_sniper_tpu_torch.parallel.slab import ALLOWED_D
+
+    assert D in ALLOWED_D
+    want_launches = ({"glfgen32": 2, "score_columns": 1} if D <= 255 else
+                     {"accumulate": 2, "assembly10": 2, "score_columns": 1})
+    params = T.ModelParams(use_joint_priors=use_joint, min_somatic_qual=0)
+    dtabs = device_tables(T.build_tables(params), dev)
+    graphs = SlabStepGraph()
+    answers = []
+    for seed in (D, D + 1):
+        stacked, meta, s, m = _card_slab(4096, D, seed, dev)
+        before = dict(gk.LAUNCHES)
+        eager = ts.call_batch_packed(s, m, dtabs, params)
+        n_e = int(eager.count)
+        assert int(eager.err) == 0
+        rows_e = eager.rows[:n_e].cpu().numpy()
+        eager_launches = {k: gk.LAUNCHES[k] - before[k] for k in before
+                          if gk.LAUNCHES[k] != before[k]}
+        before = dict(gk.LAUNCHES)
+        n, rows = graphs.run(stacked, meta, dtabs, params, dev)
+        assert {k: gk.LAUNCHES[k] - before[k] for k in before
+                if gk.LAUNCHES[k] != before[k]} == eager_launches
+        assert eager_launches == want_launches
+        assert n == n_e > 0
+        assert rows.dtype == rows_e.dtype and np.array_equal(rows, rows_e)
+        answers.append(rows)
+    assert len(graphs.captures()) == 1
+    assert not (len(answers[0]) == len(answers[1])
+                and np.array_equal(*answers))
+
+
+@pytest.mark.parametrize("use_joint", [False, True])
+def test_deep_step_rows_kernel_equal_plain_on_card(dev, monkeypatch,
+                                                   use_joint):
+    """call_batch_packed at (8192, 384) through score_columns against the
+    same step with its plain version in its place: count and rows,
+    the dqstats over every lane among them, byte-equal."""
+    from somatic_sniper_tpu_torch.ops import score_kernels as sk
+
+    params = T.ModelParams(use_joint_priors=use_joint, min_somatic_qual=0)
+    dtabs = device_tables(T.build_tables(params), dev)
+    _, _, s, m = _card_slab(8192, 384, 21 + use_joint, dev)
+    got = ts.call_batch_packed(s, m, dtabs, params)
+    monkeypatch.setattr(ts, "score_columns", sk.score_columns_plain)
+    want = ts.call_batch_packed(s, m, dtabs, params)
+    torch.cuda.synchronize()
+    n = int(got.count)
+    assert n == int(want.count) > 0
+    assert got.rows.shape[1] == 1 + 16 + 36
+    assert (got.rows[:n].cpu().numpy().tobytes()
+            == want.rows[:n].cpu().numpy().tobytes())
+
+
+def test_deep_slab_error_word_raises_at_fetch_on_card(dev, monkeypatch):
+    """A deep slab replays its captured step; a class count pushed outside
+    the tables (a device tensor added to the rescaled counts, which the
+    graph reads at its address) raises the stand-alone assembly's
+    ValueError at the step's fetch, and the card stays usable."""
+    import re
+
+    from somatic_sniper_tpu_torch.models import glfgen as mg
+    from somatic_sniper_tpu_torch.models.step_graph import SlabStepGraph
+
+    bad = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    real = mg.rescale_counts
+    monkeypatch.setattr(mg, "rescale_counts", lambda c: real(c) + bad)
+    params = T.ModelParams()
+    dtabs = device_tables(T.build_tables(params), dev)
+    graphs = SlabStepGraph()
+    stacked, meta, _, _ = _card_slab(1024, 384, 4, dev)
+    n, _ = graphs.run(stacked, meta, dtabs, params, dev)
+    bad[0, 3] = 1000
+    with pytest.raises(ValueError, match=re.escape(gk._count_error(256))):
+        graphs.run(stacked, meta, dtabs, params, dev)
+    bad.zero_()
+    assert graphs.run(stacked, meta, dtabs, params, dev)[0] == n
+    assert len(graphs.captures()) == 1
+
+
+def test_windowed_300x_pair_on_card(dev, tmp_path, monkeypatch):
+    """A 2 x 20 kb pair at 300x through the windowed driver on the card:
+    every plan survivor in slabs of a tier above 255, each slab replayed
+    from its captured step, none on the host's exact scorer, and the
+    records within the fast contract of the exact run."""
+    from somatic_sniper_tpu_torch.parallel.sharded import call_pair_windows
+    from somatic_sniper_tpu_torch.utils.simulate import (SimConfig,
+                                                         simulate_pair_fast)
+    from somatic_sniper_tpu_torch.utils.stats import STATS
+
+    monkeypatch.delenv("SNIPER_SLAB_D", raising=False)
+    simulate_pair_fast(tmp_path, SimConfig(
+        n_contigs=2, contig_len=20_000, read_len=150, mean_depth=300.0,
+        somatic_rate=1e-3, germline_rate=1e-3, seed=5))
+    args = (str(tmp_path / "tumor.bam"), str(tmp_path / "normal.bam"),
+            str(tmp_path / "ref.fa"))
+
+    def lines(precision):
+        return [ln for _, _, ls in call_pair_windows(
+            *args, precision=precision, fmt="vcf", window_size=10_000,
+            device=dev) for ln in ls]
+
+    s0 = STATS.snapshot()
+    fast = lines("fast")
+    s1 = STATS.snapshot()
+    d = {k: s1.get(k, 0) - s0.get(k, 0) for k in s1}
+    assert d.get("host_deep_columns", 0) == 0
+    assert d["device_columns"] == d["device_columns_deep"] == \
+        d["columns_scored"] > 30_000
+    assert d["slabs_graphed"] == d["slabs_dispatched"] == \
+        d["slabs_at_depth_384"] > 0
+    diff_records(fast, lines("exact"), "vcf")

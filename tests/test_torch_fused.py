@@ -37,7 +37,9 @@ from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk  # noqa: E402
 CPU = torch.device("cpu")
 ENCODINGS = ["raw32", "u16", "u32"]
 FUSED = {"raw32": "glfgen32", "u16": "glfgen16", "u32": "glfgen_u32"}
-TWO_STEP = {"raw32": "accumulate32", "u16": "accumulate16",
+# raw kept-only lanes deeper than 255 (a deep slab) take the full-word
+# accumulate with n_keep as the depth: they hold no deletion
+TWO_STEP = {"raw32": "accumulate", "u16": "accumulate16",
             "u32": "accumulate"}
 
 
@@ -88,7 +90,8 @@ def _fused_call(encoding, tcb, dtabs):
 def _spy(monkeypatch):
     """Records which kernel wrappers glfgen_batch calls."""
     called = []
-    for name in (*FUSED.values(), *TWO_STEP.values(), "assembly10_flagged"):
+    for name in dict.fromkeys((*FUSED.values(), *TWO_STEP.values(),
+                               "assembly10_flagged")):
         def wrapped(*args, _fn=getattr(tg, name), _name=name):
             called.append(_name)
             return _fn(*args)

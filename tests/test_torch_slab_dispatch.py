@@ -409,4 +409,4 @@ def test_choose_d():
     dm = np.r_[np.full(999, 40), np.array([5000])]
     assert slab_mod.choose_d(dm) == 48
     # beyond the ladder: the widest slab (the rest goes to the host)
-    assert slab_mod.choose_d(np.full(100, 500)) == 128
+    assert slab_mod.choose_d(np.full(100, 5000)) == slab_mod.ALLOWED_D[-1]

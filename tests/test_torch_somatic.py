@@ -94,9 +94,12 @@ def test_call_batch_packed_rows_match_jax(D, use_joint):
 def test_call_batch_packed_checks_bounds():
     dtabs = device_tables(T.build_tables(T.ModelParams()), CPU)
     meta = torch.zeros((3, 4), dtype=torch.int32)
+    # past the wide metadata's 16-bit depths (256 and deeper to 65535
+    # take the wide layout, tests/test_torch_deep_slab.py)
     with pytest.raises(ValueError):
-        ts.call_batch_packed(torch.zeros((2, 4, 256), dtype=torch.int32),
-                             meta, dtabs, T.ModelParams())
+        ts.call_batch_packed(
+            torch.zeros((2, 4, ts.MAX_D + 1), dtype=torch.int32), meta,
+            dtabs, T.ModelParams())
     with pytest.raises(ValueError):
         ts.call_batch_packed(torch.zeros((4, 16), dtype=torch.int32),
                              meta, dtabs, T.ModelParams())

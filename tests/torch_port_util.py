@@ -47,17 +47,57 @@ def random_raw32(B: int, D: int, seed: int, p_del: float = 0.05):
     return slots.astype(np.uint32), n_keep, depth, ref16
 
 
+def pack_slab_meta(ref16, d_t, d_n, nk_t, nk_n, D: int):
+    """The [3, B] int32 metadata of a packed slab of depth D in the
+    layout of io.native_api.slab_fill_pair: depths and kept counts in
+    bytes of row 2 to D = 255, in 16-bit halves of rows 1 (depths) and 2
+    (kept counts) deeper."""
+    d_t, d_n, nk_t, nk_n = (np.asarray(a, np.int64)
+                            for a in (d_t, d_n, nk_t, nk_n))
+    meta = np.zeros((3, len(d_t)), np.int64)
+    meta[0] = np.asarray(ref16, np.int64) << 24
+    if D <= 255:
+        meta[2] = d_t | d_n << 8 | nk_t << 16 | nk_n << 24
+    else:
+        meta[1] = d_t | d_n << 16
+        meta[2] = nk_t | nk_n << 16
+    return meta.astype(np.uint32).view(np.int32)
+
+
 def random_slab(B: int, D: int, seed: int):
     """A packed two-sample slab: (stacked uint32 [2, B, D], meta int32
     [3, B]) in the layout of io.native_api.slab_fill_pair."""
     s_t, nk_t, d_t, ref16 = random_raw32(B, D, seed)
     s_n, nk_n, d_n, _ = random_raw32(B, D, seed + 1000)
     stacked = np.stack([s_t, s_n])
-    meta = np.zeros((3, B), np.int64)
-    meta[0] = ref16.astype(np.int64) << 24
-    meta[2] = (d_t.astype(np.int64) | d_n.astype(np.int64) << 8
-               | nk_t.astype(np.int64) << 16 | nk_n.astype(np.int64) << 24)
-    return stacked, meta.astype(np.uint32).view(np.int32)
+    return stacked, pack_slab_meta(ref16, d_t, d_n, nk_t, nk_n, D)
+
+
+def deep_raw32(B: int, D: int, seed: int):
+    """Raw kept-only lanes of one sample, every column 256-D reads deep:
+    the first half drawn like the kernel tests (every base code, zero
+    base qualities, every mapQ), the second half built to give
+    likelihoods strictly between 0 and 255: base qualities 2-9, mapQ 60,
+    the reads split between the reference base and one other.  Returns
+    (slots uint32 [B, D], n_keep int32 [B], ref16 int32 [B])."""
+    rng = np.random.default_rng(seed)
+    nk = rng.integers(256, D + 1, B).astype(np.int32)
+    ref16 = rng.choice([1, 2, 4, 8], size=B).astype(np.int32)
+    base = rng.choice([1, 2, 4, 8, 15, 5, 0], size=(B, D),
+                      p=[.3, .25, .2, .13, .04, .04, .04]).astype(np.uint32)
+    baseq = rng.integers(0, 94, (B, D)).astype(np.uint32)
+    mapq = rng.integers(0, 256, (B, D)).astype(np.uint32)
+    half = B // 2
+    alt = np.roll(ref16, 1)[half:, None].astype(np.uint32)
+    frac = rng.uniform(0.2, 0.8, (B - half, 1))
+    base[half:] = np.where(rng.random((B - half, D)) < frac, alt,
+                           ref16[half:, None].astype(np.uint32))
+    baseq[half:] = rng.integers(2, 10, (B - half, D))
+    mapq[half:] = 60
+    strand = rng.integers(0, 2, (B, D)).astype(np.uint32)
+    words = mapq | (baseq << 8) | (base << 16) | (strand << 20)
+    slots = np.where(np.arange(D)[None, :] < nk[:, None], words, 0)
+    return slots.astype(np.uint32), nk, ref16
 
 
 def port_params(jparams):
