@@ -45,8 +45,11 @@ closing ``{"ok": true, ...}`` line is never printed):
    slab a replay of the step's captured CUDA graph
    (``models/step_graph.py``), and its region loads' BGZF blocks through
    ``bgzf_inflate`` (``native.blocks_card`` > 0, none inflated again on
-   the host, ``launches_bgzf_inflate`` counted where it is launched; the
-   windowed runs of phases 9, 10, 15 and 19 are held to the same);
+   the host, ``launches_bgzf_inflate`` counted where it is launched) and
+   their pileups and pure-reference flags built through
+   ``pileup_build`` (``native.regions_card_built`` > 0, none built on the
+   host, ``launches_pileup_card`` a region at most); the windowed runs of
+   phases 9, 10, 15 and 19 are held to the same;
 5. fast precision on the card against the golden pair's expected VCF;
 6. the batch path with full-u32 batches (the no-reference route, with
    the reference's ref16 so sites emit) on the 10 Mb pair, whole-file,
@@ -164,10 +167,20 @@ closing ``{"ok": true, ...}`` line is never printed):
     with the dqstats over every lane, each against its plain version on
     columns 256-D deep and timed; the ``kernels`` line gives them under
     ``deep_slab`` in the ``accumulate``, ``assembly10`` and
-    ``score_columns`` entries, with phase 21's launches.
+    ``score_columns`` entries, with phase 21's launches;
+23. ``pileup_build`` at the region load's shape: a 250 kb window of the
+    benchmark's generator at 30x (phase 20's) and at 300x (the
+    ``deep300`` configuration's), one sample, loaded through the native
+    loader with the card builder registered and without: ukeys, offsets,
+    slots and pure-reference flags byte-equal, one launch a load; the
+    build's call ms (the loader's ``pileup_build`` seconds a load, the
+    thread's wait on the card) beside the host build's, the four
+    kernels' device ms (torch.profiler) and their byte bound in the
+    ``kernels`` line (the 300x window under ``deep_window``).
 
 ``python3 chip_smoke.py --deep`` runs phases 1, 2, 17 at the slab tiers
-from 255 up, 21 and 22.
+from 255 up, 21 and 22; ``python3 chip_smoke.py --pileup`` phases 1, 2
+and 23.
 
 Its first statements make ``import jax`` and ``import somatic_sniper_tpu``
 fail, so a pass also shows that the port needs neither; it imports only
@@ -262,7 +275,16 @@ KERNELS = {
     "bgzf_inflate": (CSRC + "bgzf_inflate.cu",
                      "none: host zlib in somatic_sniper_tpu/io/native/"
                      "sniper_native.cpp region_scan"),
+    # no TPU kernel: its plain version is the host's counting build
+    "pileup_build": (CSRC + "pileup_build.cu",
+                     "none: host pileup_build_tpl and fill_pure_flags in "
+                     "somatic_sniper_tpu/io/native/sniper_native.cpp"),
 }
+# the CUDA kernels each entry of KERNELS launches, where they are not
+# named after it
+KERNEL_FUNCS = {"pileup_build": ("pileup_cover_kernel", "pileup_scan_kernel",
+                                 "pileup_scatter_kernel",
+                                 "pileup_pure_kernel")}
 # the fused kernel that runs a stand-alone kernel's code on each path
 FUSED_AS = {"accumulate32": "glfgen32", "assembly10": "glfgen32",
             "accumulate": "glfgen", "accumulate16": "glfgen16"}
@@ -1325,8 +1347,8 @@ def finish_cli(procs: list[subprocess.Popen], limit: float) -> list[str]:
 def check_scored_on_card(summaries: list[dict], n: int, what: str) -> dict:
     """``n`` processes' summaries, each of which must show slabs scored
     through glfgen32 on the card (one launch a sample a slab) and its
-    region loads inflated there (``check_card_inflate``).  Returns the
-    launches of the path, summed."""
+    region loads inflated and built there (``check_card_load``).  Returns
+    the launches of the path, summed."""
     if len(summaries) != n:
         raise AssertionError(f"{what}: {len(summaries)} stage summaries "
                              f"for {n} processes")
@@ -1338,9 +1360,10 @@ def check_scored_on_card(summaries: list[dict], n: int, what: str) -> dict:
             raise AssertionError(
                 f"{what}: process {i} did not score its slabs through "
                 f"glfgen32 in the captured step on the card: {b}")
+    loads = [check_card_load(b, f"{what} process {i}")
+             for i, b in enumerate(summaries)]
     return {"glfgen32": sum(b["launches_glfgen32"] for b in summaries),
-            "bgzf_inflate": sum(check_card_inflate(b, f"{what} process {i}")
-                                for i, b in enumerate(summaries))}
+            **{k: sum(x[k] for x in loads) for k in loads[0]}}
 
 
 def jobs_runs(common: list[str], out_dir: Path, fast_lines: list[str],
@@ -2173,7 +2196,7 @@ def records_and_prefilter(pair: Path, out_dir: Path, fast_lines: list[str],
         wall = time.perf_counter() - t0
         stats = STATS.snapshot()
         launches = dict(gk.LAUNCHES)
-        launches["bgzf_inflate"] = check_card_inflate(stats, what)
+        launches.update(check_card_load(stats, what))
         if body_lines(out) != fast_lines:
             raise AssertionError(f"{what}: other bytes than phase 4's fast "
                                  "output")
@@ -2271,8 +2294,8 @@ def split_prefilter_off(pair: Path, out_dir: Path, fast_lines: list[str],
             f"{lines[first:first + 1]} against "
             f"{fast_lines[first:first + 1]}")
     print_digest(lines)
-    launches["bgzf_inflate"] = check_card_inflate(
-        stats, f"prefilter=False over [{names}]")
+    launches.update(check_card_load(stats,
+                                    f"prefilter=False over [{names}]"))
     slabs = int(stats.get("slabs_dispatched", 0))
     counts = {k: int(stats.get(k, 0)) for k in
               ("slabs_dispatched", "slabs_split", "slabs_graphed",
@@ -2435,11 +2458,23 @@ def inflate_on_card(dev, torch) -> tuple:
                                                                n_out)
 
 
-def check_card_inflate(stats: dict, what: str) -> int:
-    """A windowed run on the card inflated its region loads there: blocks
-    handed to the card, none refused, one launch or more a region of at
-    most 256 blocks (``launches_bgzf_inflate``, counted where the kernel
-    is launched).  Returns the launches."""
+def check_card_load(stats: dict, what: str) -> dict:
+    """A windowed run on the card inflated its region loads there and
+    built their pileups there: blocks handed to the card, none refused,
+    one launch or more a region of at most 256 blocks
+    (``launches_bgzf_inflate``, counted where the kernel is launched);
+    regions built by the card builder, none on the host, at most one
+    build a region (``launches_pileup_card``).  Returns the launches of
+    both."""
+    built = int(stats.get("native.regions_card_built", 0))
+    host_built = int(stats.get("native.regions_host_built", 0))
+    builds = int(stats.get("launches_pileup_card", 0))
+    print(f"  {what}: card pileup build {built} regions ({builds} "
+          f"launched), {host_built} built on the host", flush=True)
+    if built <= 0 or host_built or not 0 < builds <= built:
+        raise AssertionError(f"{what}: {built} regions built on the card, "
+                             f"{host_built} on the host, {builds} builds "
+                             "launched")
     blocks = int(stats.get("native.blocks_card", 0))
     redo = int(stats.get("native.blocks_card_redo", 0))
     launches = int(stats.get("launches_bgzf_inflate", 0))
@@ -2451,7 +2486,7 @@ def check_card_inflate(stats: dict, what: str) -> int:
     if blocks <= 0 or redo or launches <= 0 or 256 * launches < blocks:
         raise AssertionError(f"{what}: card inflate {blocks} blocks, {redo} "
                              f"redone, {launches} launches")
-    return launches
+    return {"bgzf_inflate": launches, "pileup_build": builds}
 
 
 # the deep300 configuration's pair (benchmark/configs/deep300.json),
@@ -2542,6 +2577,127 @@ def deep_pair_windows(dev) -> tuple[dict, dict]:
     return stats, launches
 
 
+# the card build's 300x window: one contig of a 250 kb window of the
+# deep300 configuration's generator, one sample
+PILEUP_SEED_300 = 2**31 + 23
+
+
+def profiled_call_ms(fn, names, torch, reps: int = 5) -> float | None:
+    """Device milliseconds a call of ``fn`` spends in the kernels whose
+    names hold one of ``names``, read from torch.profiler over ``reps``
+    calls; None ("not measured") where the profiler shows none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(row, "device_time_total",
+                           getattr(row, "cuda_time_total", 0.0))
+                   for row in prof.key_averages()
+                   if any(n in row.key for n in names))
+    return total_us / reps / 1e3 if total_us > 0 else None
+
+
+def pileup_on_card(dev, torch) -> tuple[dict, int]:
+    """Phase 23: a region load's pileup build on the card
+    (``sniper_card_pileup``, registered with the native loader) on a
+    250 kb window of the benchmark's generator at 30x and at 300x, one
+    sample: ukeys, offsets, slots and pure-reference flags byte-equal to
+    the host build's, one launch a load.  Timed beside the host build:
+    the call ms is the loader's ``pileup_build`` seconds a load (the
+    thread's wait on the card: copies, kernels, the host arrays), the
+    host's its ``pileup_build`` and ``pure_flags``; the device ms is the
+    four kernels' a load (torch.profiler); the bound is the bytes the
+    build cannot avoid: each entry's slot word written and its base and
+    quality read (5.5 bytes), each column's key, offset and flag (17
+    bytes).  Returns {"30x" / "300x": (differing elements, ms, host ms,
+    device ms, None, bound ms, "bytes", shape)} and the launches."""
+    import numpy as np
+
+    from somatic_sniper_tpu_torch.io import bai, native, native_api
+    from somatic_sniper_tpu_torch.io.bam import read_bam_header
+    from somatic_sniper_tpu_torch.io.fasta import FastaFile
+    from somatic_sniper_tpu_torch.models.tables import (ModelParams,
+                                                        build_tables)
+    from somatic_sniper_tpu_torch.ops import build
+    from somatic_sniper_tpu_torch.pileup.prefilter import prefilter_tables
+    from somatic_sniper_tpu_torch.runner import _ref_blob
+
+    sys.path.insert(0, str(REPO / "benchmark"))
+    import pairgen
+
+    lib = build.load_library()
+    nlib = native.get_lib()
+    native.set_card_inflate(None, dev.index or 0)  # the builder's device
+    address = build.card_pileup_addresses()
+    tabs = build_tables(ModelParams())
+    gmin, margin = prefilter_tables(tabs)
+    out, launches = {}, 0
+    end = INFLATE_WINDOW["contig_len"]
+    for label, config, seed, d in (
+            ("30x", "wgs30", INFLATE_SEED, DATA / "inflate_window"),
+            ("300x", "deep300", PILEUP_SEED_300, DATA / "pileup_window_300")):
+        if not (d / "tumor.bam.bai").exists():
+            cfg = json.loads((REPO / "benchmark" / "configs"
+                              / f"{config}.json").read_text())["data"]
+            pairgen.generate(d, {**cfg, **INFLATE_WINDOW}, seed)
+        bam = str(d / "tumor.bam")
+        header = read_bam_header(bam)
+        blob, off = _ref_blob(FastaFile(str(d / "ref.fa")), header)
+        ch = np.asarray(bai.region_chunks(bai.ensure_index(bam), 0, 0, end),
+                        np.int64).reshape(-1, 2)
+
+        def load(card: bool):
+            native.set_card_pileup(address if card else None)
+            s0 = native.load_counters(nlib)[0]
+            pu = native_api.load_region_and_columnize(
+                bam, ch, 0, 0, end, n_threads=1,
+                flag_args=(blob, off, tabs.fk, gmin, margin))
+            s1 = native.load_counters(nlib)[0]
+            ms = 1e3 * sum(s1[f"native.{k}"] - s0[f"native.{k}"]
+                           for k in ("pileup_build", "pure_flags"))
+            c = pu.owner._ptr.contents
+            arrays = (np.array(pu.ukeys), np.array(pu.offsets),
+                      np.array(pu.slots),
+                      np.ctypeslib.as_array(c.pure, (len(pu.ukeys),)).copy())
+            return arrays, ms
+
+        try:
+            want, _ = load(False)
+            n0 = lib.sniper_pileup_card_launches()
+            got, _ = load(True)
+            n_launch = lib.sniper_pileup_card_launches() - n0
+            bad = sum(len(a) if len(a) != len(b) else int((a != b).sum())
+                      for a, b in zip(want, got))
+            if bad or n_launch != 1:
+                raise AssertionError(
+                    f"card pileup build, {label}: {bad} elements differ "
+                    f"from the host build's, {n_launch} launches")
+            launches += n_launch
+            ms = statistics.median(load(True)[1]
+                                   for _ in range(TIMED_REPEATS))
+            host_ms = statistics.median(load(False)[1]
+                                        for _ in range(TIMED_REPEATS))
+            dev_ms = profiled_call_ms(lambda: load(True),
+                                      KERNEL_FUNCS["pileup_build"], torch)
+        finally:
+            native.set_card_pileup(None)
+        n_cols, n_entries = len(want[0]), len(want[2])
+        bound, by = bound_ms(int(n_entries * 5.5) + 17 * n_cols, 0)
+        shape = (n_cols, round(n_entries / n_cols))
+        print(f"  pileup_build {label}: {n_cols} columns, {n_entries} "
+              f"entries: byte-equal to the host build, {n_launch} launch; "
+              f"per load {ms:.3f} ms (copies, kernels, the host arrays), "
+              f"host build {host_ms:.3f} ms; device: kernels "
+              f"{fmt_ms(dev_ms)}; bound {bound:.5f} ms by {by}", flush=True)
+        if bound > min(x for x in (ms, dev_ms) if x is not None):
+            raise AssertionError("pileup_build ran faster than its bound")
+        out[label] = (bad, ms, host_ms, dev_ms, None, bound, by, shape)
+    return out, launches
+
+
 def deep_kernels(stats: dict, dev, torch, floor_ms: float) -> dict:
     """Phase 22: kernels_at_path_shapes over the slab shapes phase 21 ran
     (family ``deep``).  Returns its {(name, shape): ...}."""
@@ -2604,6 +2760,41 @@ def deep() -> int:
     phase("22 the deep slab step's kernels at phase 21's shapes")
     deep_kernels(stats, dev, torch, floor_ms)
     print(f"  --deep wall {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def pileup() -> int:
+    """``python3 chip_smoke.py --pileup``: phases 1-2 and 23."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    from somatic_sniper_tpu_torch.device import resolve_device
+    from somatic_sniper_tpu_torch.io import native
+    from somatic_sniper_tpu_torch.ops import build
+
+    phase("1 card")
+    card = card_line()
+    print(card, flush=True)
+    dev = resolve_device("cuda")
+    phase("2 build")
+    if native.get_lib() is None:
+        raise AssertionError("the port's native host library did not build")
+    build.build()
+    for kernel, use in sorted(build.resource_usage().items()):
+        if kernel in KERNEL_FUNCS["pileup_build"]:
+            print(f"  {kernel}: {use['registers']} registers a thread, "
+                  f"{use.get('spill_bytes', 0)} bytes spilled, "
+                  f"{use['smem_bytes']} bytes of static shared memory",
+                  flush=True)
+    phase("23 the card pileup build at the region load's shape")
+    pileup_on_card(dev, torch)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2850,7 +3041,7 @@ def main() -> int:
     walls = {"fast": [run_cli([*fast, str(out_dir / "fast.vcf")])]}
     launches = dict(gk.LAUNCHES)
     stats = STATS.snapshot()
-    launches["bgzf_inflate"] = check_card_inflate(stats, "phase 4")
+    launches.update(check_card_load(stats, "phase 4"))
     # timed repeats, alternated on the same card: exact, fast, exact
     walls["exact"] = [run_cli([*exact, str(out_dir / "exact.vcf")])]
     STATS.reset()
@@ -2981,6 +3172,11 @@ def main() -> int:
         errs[name.split("/")[0]] = max(errs[name.split("/")[0]], t[0])
     deep_shape = next(sh for (name, sh), t in at_deep.items()
                       if name == "accumulate" and len(t) > 1)
+    phase("23 the card pileup build at the region load's shape")
+    pileup_t, _ = pileup_on_card(dev, torch)
+    pileup_shape = pileup_t["30x"][7]
+    at_path["pileup_build", pileup_shape] = pileup_t["30x"]
+    errs["pileup_build"] = max(t[0] for t in pileup_t.values())
 
     # each kernel's launches from the phase that ran it, its times at
     # the main shape of its path (phase 8)
@@ -2994,6 +3190,7 @@ def main() -> int:
         "glfgen16": (launches_u16, shapes["u16"][0]),
         "score_columns": (launches, shapes["slab"][0]),
         "bgzf_inflate": (launches, inflate_shape),
+        "pileup_build": (launches, pileup_shape),
     }
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3007,7 +3204,17 @@ def main() -> int:
         if fused_as is None:
             extra["registers"] = {
                 k: v["registers"] for k, v in sorted(registers.items())
-                if k == f"{name}_kernel" or k.startswith(f"{name}_kernel<")}
+                if k in KERNEL_FUNCS.get(name, ()) or k == f"{name}_kernel"
+                or k.startswith(f"{name}_kernel<")}
+        if name == "pileup_build":
+            # the 300x window (phase 23)
+            _, d_ms, d_pms, d_dms, _, d_bound, d_by, d_shape = \
+                pileup_t["300x"]
+            extra["deep_window"] = {
+                "shape": list(d_shape), "ms": d_ms, "plain_ms": d_pms,
+                "device_ms": d_dms, "bound_ms": d_bound, "bound_by": d_by,
+                "bound_share_of_device_ms": (None if d_dms is None
+                                             else d_bound / d_dms)}
         _, ms, pms, dms, pdms, bound, by, _ = at_path[name, shape]
         if name == "score_columns":
             # every timed call of phase 8: solo at each path's main shape,
@@ -3057,11 +3264,11 @@ def main() -> int:
                           "windows_prefilter_off_split": {
                               k: launches_nopf_split[k]
                               for k in ("glfgen32", "score_columns",
-                                        "bgzf_inflate")},
+                                        "bgzf_inflate", "pileup_build")},
                           "windows_prefilter_off": {
                               k: launches_nopf[k]
                               for k in ("glfgen32", "score_columns",
-                                        "bgzf_inflate")}}}),
+                                        "bgzf_inflate", "pileup_build")}}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3112,7 +3319,9 @@ if __name__ == "__main__":
         sys.exit(score_sweep())
     if sys.argv[1:] == ["--deep"]:
         sys.exit(deep())
+    if sys.argv[1:] == ["--pileup"]:
+        sys.exit(pileup())
     if sys.argv[1:]:
         sys.exit("usage: python3 chip_smoke.py [--cards | --score-sweep | "
-                 "--deep]")
+                 "--deep | --pileup]")
     sys.exit(main())

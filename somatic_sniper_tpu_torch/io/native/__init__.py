@@ -277,6 +277,9 @@ def get_lib():
         ]
         lib.sniper_set_card_inflate.restype = None
         lib.sniper_set_card_inflate.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.sniper_set_card_pileup.restype = None
+        lib.sniper_set_card_pileup.argtypes = [ctypes.c_void_p,
+                                               ctypes.c_void_p]
         lib.sniper_last_error.restype = ctypes.c_char_p
         _lib = lib
         STATS.add_source(functools.partial(load_counters, lib))
@@ -290,17 +293,22 @@ LOAD_PHASES = ("read", "bgzf_scan", "inflate", "record_scan",
 # them), which blocks_zlib or blocks_libdeflate count as well
 INFLATE_COUNTERS = ("bytes_inflated", "blocks_libdeflate", "blocks_zlib",
                     "blocks_card", "blocks_card_redo")
+# region loads whose pileup and flags the card builder built, and those the
+# host built (no builder registered, or a block the card refused)
+BUILD_COUNTERS = ("regions_card_built", "regions_host_built")
 
 
 def load_counters(lib) -> tuple[dict[str, float], dict[str, int]]:
-    """The loader's cumulative phase seconds (summed over threads) and
-    inflate counters, as ``native.<name>`` entries of ``STATS``: read,
-    never reset, so that a window's delta holds whatever else reads them."""
+    """The loader's cumulative phase seconds (summed over threads),
+    inflate and build counters, as ``native.<name>`` entries of ``STATS``:
+    read, never reset, so that a window's delta holds whatever else reads
+    them."""
+    names = INFLATE_COUNTERS + BUILD_COUNTERS
     secs = (ctypes.c_double * len(LOAD_PHASES))()
-    counts = (ctypes.c_int64 * len(INFLATE_COUNTERS))()
+    counts = (ctypes.c_int64 * len(names))()
     lib.sniper_load_counters(secs, counts)
     return ({f"native.{k}": v for k, v in zip(LOAD_PHASES, secs)},
-            {f"native.{k}": v for k, v in zip(INFLATE_COUNTERS, counts)})
+            {f"native.{k}": v for k, v in zip(names, counts)})
 
 
 def available() -> bool:
@@ -316,6 +324,19 @@ def set_card_inflate(address: int | None, device: int = 0) -> None:
     lib = get_lib()
     if lib is not None:
         lib.sniper_set_card_inflate(address, device)
+
+
+def set_card_pileup(addresses: tuple[int, int] | None) -> None:
+    """Hand the region loads' pileup builds and pure-reference flags to the
+    card builder at ``addresses`` (C functions with the signatures of the
+    kernels' library ``sniper_card_pileup`` and
+    ``sniper_card_pileup_release``, the second taking back the buffers of
+    the pileups the first built), run on the device that
+    ``set_card_inflate`` named; ``None`` builds every region on the host
+    again.  One setting for the process."""
+    lib = get_lib()
+    if lib is not None:
+        lib.sniper_set_card_pileup(*(addresses or (None, None)))
 
 
 def _as_np(ptr, n, dtype):

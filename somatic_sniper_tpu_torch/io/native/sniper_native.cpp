@@ -264,6 +264,27 @@ static std::atomic<int> g_card_device{0};
 // (0.34 ms a block; H100 host, PERF.md).
 static const int kCardMinBlocks = 16;
 
+// A card pileup builder (the port's sniper_card_pileup), registered by the
+// windowed driver beside the card inflater (sniper_set_card_pileup): a
+// region load's pileup and its pure-reference flags, built from the
+// region's inflated bytes and the body offsets of the records pass 1 kept
+// (card_pileup).  It returns the arrays in a buffer of its own, which the
+// pileup gives back to its release function when freed.  Returns 0; a
+// negative number where the host is to build the region; or a CUDA error
+// (the load fails).
+typedef int (*CardPileupFn)(int device, const void* bytes, long long n_bytes,
+                            const void* rec, int n_reads, int tid,
+                            long long lo, long long hi, long long max_len,
+                            const void* ref, long long n_ref, const void* fk,
+                            const void* gmin, double margin, int fused,
+                            void* out, void* counts);
+typedef void (*CardReleaseFn)(void* buffer);
+static std::atomic<CardPileupFn> g_card_pileup{nullptr};
+static std::atomic<CardReleaseFn> g_card_release{nullptr};
+// region loads whose pileup the card built, and those the host built (one
+// atomic add a region, read by sniper_load_counters)
+static std::atomic<int64_t> g_regions[2];
+
 // Hand a region's blocks (those with output) to the card inflater in one
 // call, and leave in ``blocks`` the ones the card refused, for the host to
 // inflate as it would without a card: a bad status, or a CRC32 or ISIZE
@@ -271,9 +292,10 @@ static const int kCardMinBlocks = 16;
 // holds right after the block's DEFLATE stream.  Fewer than
 // kCardMinBlocks blocks are all left to the host.  A call that fails as a
 // whole (a CUDA error) fails the load: false, with ``err`` set.
+// ``refused``: the blocks the card refused.
 static bool card_inflate(CardInflateFn fn, const std::vector<uint8_t>& comp,
                          std::vector<BgzfBlock>& blocks, uint8_t* out,
-                         std::string& err) {
+                         int64_t& refused, std::string& err) {
     std::vector<BgzfBlock> sent;
     for (const BgzfBlock& b : blocks)
         if (b.out_size != 0) sent.push_back(b);
@@ -306,8 +328,9 @@ static bool card_inflate(CardInflateFn fn, const std::vector<uint8_t>& comp,
         else
             t_inflate.bytes += isize[i];
     }
+    refused = (int64_t)blocks.size();
     t_inflate.card += n;
-    t_inflate.card_redo += (int64_t)blocks.size();
+    t_inflate.card_redo += refused;
     return true;
 }
 
@@ -419,6 +442,12 @@ struct PileupStorage {
     std::vector<int64_t> keys, ukeys, offsets;
     std::vector<uint32_t> slots;
     std::vector<uint8_t> pure;
+    // a card builder's buffer holding the arrays instead, and its release
+    void* card_buffer = nullptr;
+    void (*card_release)(void*) = nullptr;
+    ~PileupStorage() {
+        if (card_buffer) card_release(card_buffer);
+    }
 };
 
 struct HeaderStorage {
@@ -657,6 +686,8 @@ static int64_t rec_ref_span(const uint8_t* r) {
 // start/end mid-block.  Every chunk is read and scanned first, then all
 // their blocks are inflated at once (one call to a card inflater, when
 // one is registered), then each chunk's records are collected.
+// t_region_refused: the blocks a card inflater refused.
+static thread_local int64_t t_region_refused = 0;
 static bool region_scan(const char* path, const int64_t* chunks,
                         int64_t n_chunks, int32_t tid, int64_t beg,
                         int64_t end, int n_threads,
@@ -672,6 +703,7 @@ static bool region_scan(const char* path, const int64_t* chunks,
     if (n_threads < 1) n_threads = 1;
     libdeflate_probe();
     PublishInflate publish;
+    t_region_refused = 0;
     // a chunk's place in ``all`` and where its records start and stop
     struct ChunkSpan {
         int64_t abase, total, last_block_usize, c_beg, c_end;
@@ -763,7 +795,8 @@ static bool region_scan(const char* path, const int64_t* chunks,
     // the card refused
     if (CardInflateFn card = g_card_inflate.load()) {
         ProfSpan ps(2);
-        if (!card_inflate(card, comp_all, blocks, all.data(), err)) {
+        if (!card_inflate(card, comp_all, blocks, all.data(),
+                          t_region_refused, err)) {
             fclose(f);
             return false;
         }
@@ -1164,6 +1197,40 @@ static int64_t read_end(const R& rd, int64_t r) {
     return end;
 }
 
+// Pass 1 of pileup_build_tpl for a region load's records, all of one
+// contig, as the card build takes them, in one pass over the records: the
+// filter (flag mask with BAM_FUNMAP always, the mapQ floor), the
+// sortedness check (false, with g_err set) and the carried
+// contig-transition drop (the drop between contigs within a call has no
+// second contig to act on).  ``rec`` gets the kept records' body offsets,
+// ``max_end`` and ``max_len`` the furthest end and the longest extent of
+// them on the reference.
+static bool region_pass1(const BufReads& rd, int flag_mask, int mapq_thresh,
+                         int64_t drop_first_end_le, std::vector<int64_t>& rec,
+                         int64_t& max_end, int64_t& max_len) {
+    const int fmask = flag_mask | 0x4;
+    int64_t prev_pos = -1;
+    bool first = true;
+    for (int64_t r = 0; r < rd.n(); ++r) {
+        const int64_t pos = rd.pos(r);
+        if (pos < prev_pos) {
+            g_err = "BAM is not coordinate-sorted";
+            return false;
+        }
+        prev_pos = pos;
+        if ((rd.flag(r) & fmask) != 0 || rd.mapq(r) < mapq_thresh) continue;
+        const int64_t e = read_end(rd, r);
+        if (first) {
+            first = false;
+            if (drop_first_end_le >= 0 && e <= drop_first_end_le) continue;
+        }
+        rec.push_back(rd.off[r]);
+        max_end = std::max(max_end, e);
+        max_len = std::max(max_len, e - pos);
+    }
+    return true;
+}
+
 template <class R>
 static NativePileup* pileup_build_tpl(const R& nb, int flag_mask,
                                       int mapq_thresh, int64_t wbeg,
@@ -1409,6 +1476,80 @@ static void fill_pure_flags(NativePileup* np, const uint8_t* ref16,
     np->pure = st->pure.data();
 }
 
+// g++ contracts the flags' ``L += fk[m] * eff`` into one fused
+// multiply-add where the target has one (its default -ffp-contract=fast;
+// the library is built with -march=native): the card's chain does as
+// this build's does.
+#ifdef __FMA__
+static const int kPureFused = 1;
+#else
+static const int kPureFused = 0;
+#endif
+
+// A region load's pileup (and flags, with ``ref16``) built by the card
+// builder ``fn`` from the records of ``rd``, all of contig ``tid`` (the
+// region's, as region_scan keeps them): pass 1 here, the rest on the card,
+// the same bytes as pileup_build_tpl + fill_pure_flags.  nullptr with
+// g_err set where pass 1 or the card failed; nullptr with ``*declined``
+// where the host is to build it.
+static NativePileup* card_pileup(CardPileupFn fn, CardReleaseFn release,
+                                 const BufReads& rd, int32_t tid,
+                                 int64_t n_bytes, int flag_mask,
+                                 int mapq_thresh, int64_t wbeg, int64_t wend,
+                                 int64_t drop_first_end_le,
+                                 const uint8_t* ref16, const int64_t* ref_off,
+                                 int32_t n_ref, const double* fk,
+                                 const double* gmin, double margin,
+                                 bool* declined) {
+    std::vector<int64_t> rec;
+    rec.reserve((size_t)rd.n());
+    int64_t max_end = 0, max_len = 0;
+    if (!region_pass1(rd, flag_mask, mapq_thresh, drop_first_end_le, rec,
+                      max_end, max_len))
+        return nullptr;
+    if (rec.size() > (size_t)INT32_MAX) {
+        *declined = true;
+        return nullptr;
+    }
+    const int64_t lo = wbeg > 0 ? wbeg : 0;
+    const int64_t hi = wend >= 0 && wend < max_end ? wend : max_end;
+    // the reference codes from lo on; the positions past the contig's
+    // reference (or of a contig the reference lacks) are never pure
+    const uint8_t* ref = ref16;
+    int64_t n_codes = 0;
+    if (ref16 && tid >= 0 && tid < n_ref &&
+        lo < ref_off[tid + 1] - ref_off[tid]) {
+        ref = ref16 + ref_off[tid] + lo;
+        n_codes = ref_off[tid + 1] - ref_off[tid] - lo;
+    }
+    void* out[5];
+    long long counts[2];
+    const int rc = fn(g_card_device.load(), rd.buf, (long long)n_bytes,
+                      rec.data(), (int)rec.size(), tid, lo, hi, max_len, ref,
+                      n_codes, fk, gmin, margin, kPureFused, out, counts);
+    if (rc != 0) {
+        if (rc < 0)
+            *declined = true;
+        else
+            g_err = "pileup build failure (region, card: CUDA error " +
+                    std::to_string(rc) + ")";
+        return nullptr;
+    }
+    auto* st = new PileupStorage();
+    st->card_buffer = out[0];
+    st->card_release = release;
+    auto* np = new NativePileup();
+    np->n_cols = counts[0];
+    np->n_entries = counts[1];
+    np->keys = nullptr;
+    np->ukeys = static_cast<int64_t*>(out[1]);
+    np->offsets = static_cast<int64_t*>(out[2]);
+    np->slots = static_cast<uint32_t*>(out[3]);
+    np->pure = ref16 ? static_cast<uint8_t*>(out[4]) : nullptr;
+    np->_storage = st;
+    return np;
+}
+
 NativePileup* pileup_build(const NativeBam* nb, int flag_mask,
                            int mapq_thresh) {
     return pileup_build_tpl(ArrayReads{nb}, flag_mask, mapq_thresh, -1, -1,
@@ -1534,8 +1675,24 @@ NativePileup* bam_load_region_pileup(
     if (!region_scan(path, chunks, n_chunks, tid, beg, end, n_threads,
                      all, kept, g_err))
         return nullptr;
+    const int64_t refused = t_region_refused;
     BufReads rd{all.data(), kept.data(), (int64_t)kept.size()};
     NativePileup* np;
+    // with a card builder registered the card builds the pileup and its
+    // flags, unless the card refused one of the region's blocks; its wait
+    // counts as the pileup build
+    if (CardPileupFn card = g_card_pileup.load(); card && refused == 0) {
+        ProfSpan ps(4);
+        bool declined = false;
+        np = card_pileup(card, g_card_release.load(), rd, tid,
+                         (int64_t)all.size(), flag_mask,
+                         mapq_thresh, beg, end, drop_first_end_le, ref16,
+                         ref_off, n_ref, fk, gmin, margin, &declined);
+        if (!declined) {
+            if (np) g_regions[0].fetch_add(1);
+            return np;
+        }
+    }
     {
         ProfSpan ps(4);
         np = pileup_build_tpl(rd, flag_mask, mapq_thresh, beg, end,
@@ -1545,6 +1702,7 @@ NativePileup* bam_load_region_pileup(
         ProfSpan ps(5);
         fill_pure_flags(np, ref16, ref_off, n_ref, fk, gmin, margin);
     }
+    if (np) g_regions[1].fetch_add(1);
     return np;
     } catch (const std::exception& e) {
         g_err = std::string("native load failed: ") + e.what();
@@ -1554,12 +1712,14 @@ NativePileup* bam_load_region_pileup(
 
 // The load counters since the library was loaded, read without reset:
 // seconds[6] <- {read, bgzf_scan, inflate, record_scan, pileup_build,
-// pure_flags}, summed over threads; counts[5] <- {bytes_inflated,
-// blocks_libdeflate, blocks_zlib, blocks_card, blocks_card_redo}.
+// pure_flags}, summed over threads; counts[7] <- {bytes_inflated,
+// blocks_libdeflate, blocks_zlib, blocks_card, blocks_card_redo,
+// regions_card_built, regions_host_built}.
 void sniper_load_counters(double* seconds, int64_t* counts) {
     for (int i = 0; i < 6; ++i)
         seconds[i] = (double)g_prof[i].load() * 1e-9;
     for (int i = 0; i < 5; ++i) counts[i] = g_inflate[i].load();
+    for (int i = 0; i < 2; ++i) counts[5 + i] = g_regions[i].load();
 }
 
 // Register the card inflater the region loads hand their BGZF blocks to
@@ -1568,6 +1728,16 @@ void sniper_load_counters(double* seconds, int64_t* counts) {
 void sniper_set_card_inflate(void* fn, int device) {
     g_card_device.store(device);
     g_card_inflate.store(reinterpret_cast<CardInflateFn>(fn));
+}
+
+// Register the card builder the region loads hand their pileup builds to
+// (a CardPileupFn, called with sniper_set_card_inflate's device, and the
+// CardReleaseFn its pileups' buffers go back to), or, with NULL, none:
+// every region's pileup is then built on the host.  The whole-file load
+// never uses it.
+void sniper_set_card_pileup(void* fn, void* release) {
+    g_card_release.store(reinterpret_cast<CardReleaseFn>(release));
+    g_card_pileup.store(reinterpret_cast<CardPileupFn>(fn));
 }
 
 void pileup_destroy(NativePileup* np) {

@@ -221,24 +221,48 @@ SIGNATURES: dict[str, tuple[list, object]] = {
     "sniper_card_inflate": ([_I, _P, _LL, _I] + [_P] * 7, _I),
     # (none)
     "sniper_bgzf_inflate_launches": ([], _LL),
+    # device, bytes, n_bytes, rec, n_reads, tid, lo, hi, max_len, ref,
+    # n_ref, fk, gmin, margin, fused, out, counts
+    "sniper_card_pileup": ([_I, _P, _LL, _P, _I, _I, _LL, _LL, _LL, _P, _LL,
+                            _P, _P, ctypes.c_double, _I, _P, _P], _I),
+    # buffer
+    "sniper_card_pileup_release": ([_P], None),
+    # (none)
+    "sniper_pileup_card_launches": ([], _LL),
 }
 
-_inflate_counted = False
+_card_counted = False
+
+
+def _count_card_launches(lib) -> None:
+    """From the first card hand-off on, ``STATS`` counts the inflate's
+    launches as ``launches_bgzf_inflate`` and the pileup builds' as
+    ``launches_pileup_card``."""
+    global _card_counted
+    with _lock:
+        if not _card_counted:
+            STATS.add_source(lambda: ({}, {
+                "launches_bgzf_inflate": lib.sniper_bgzf_inflate_launches(),
+                "launches_pileup_card": lib.sniper_pileup_card_launches()}))
+            _card_counted = True
 
 
 def card_inflate_address() -> int:
     """Address of ``sniper_card_inflate``, for the native loader's
-    ``sniper_set_card_inflate``; builds the library on first use.  From
-    then on ``STATS`` counts the kernel's launches as
-    ``launches_bgzf_inflate``."""
-    global _inflate_counted
+    ``sniper_set_card_inflate``; builds the library on first use."""
     lib = load_library()
-    with _lock:
-        if not _inflate_counted:
-            STATS.add_source(lambda: ({}, {
-                "launches_bgzf_inflate": lib.sniper_bgzf_inflate_launches()}))
-            _inflate_counted = True
+    _count_card_launches(lib)
     return ctypes.cast(lib.sniper_card_inflate, ctypes.c_void_p).value
+
+
+def card_pileup_addresses() -> tuple[int, int]:
+    """Addresses of ``sniper_card_pileup`` and
+    ``sniper_card_pileup_release``, for the native loader's
+    ``sniper_set_card_pileup``; builds the library on first use."""
+    lib = load_library()
+    _count_card_launches(lib)
+    return tuple(ctypes.cast(fn, ctypes.c_void_p).value for fn in (
+        lib.sniper_card_pileup, lib.sniper_card_pileup_release))
 
 
 def load_library() -> ctypes.CDLL:

@@ -5,25 +5,19 @@
 // pointer the windowed driver registers with it (sniper_set_card_inflate):
 // it stages one call's blocks in pinned memory, copies them up, inflates,
 // copies the outputs and statuses back and waits, all on the calling
-// thread's own stream.  The loader's pool threads call it at once, each
-// with its own stream, event and buffers, so their copies and kernels
-// overlap on the card; a thread that exits hands its buffers to the next
-// one (a process-wide free list), so a new pool pins nothing anew.  The
-// wait blocks on an event made with cudaEventBlockingSync: the host's
-// cores, not the card, set the pace, and a spinning wait would take one of
-// them from every waiting thread.  The first CUDA error ends the card's
-// part: it is returned by that call and by every later one, which then
-// stage nothing.
+// thread's own stage (card_stage.cuh: its stream, events and buffers).
+// The first CUDA error ends the card's part: it is returned by that call
+// and by every later one, which then stage nothing.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <atomic>
 #include <cstring>
-#include <mutex>
 #include <vector>
 
 #include "bgzf_inflate.cuh"
+#include "card_stage.cuh"
 
 namespace {
 
@@ -39,101 +33,14 @@ __global__ void __launch_bounds__(32)
                      *reinterpret_cast<bgzf::Smem*>(smem), threadIdx.x);
 }
 
-// One calling thread's stream, event and buffers, on one device.  Sizes:
-// a region load of the windowed driver (~210 blocks, ~6.5 MB in, ~14 MB
-// out) fits one batch; a larger call runs in several.
-constexpr int kBatchBlocks = 256;
-constexpr size_t kCapIn = 8u << 20;
-constexpr size_t kCapOut = (size_t)kBatchBlocks * bgzf::kMaxOut;
-// descriptors: in_off, out_off (i64), in_len, isize, crc, status (i32)
-constexpr size_t kDescBytes = (size_t)kBatchBlocks * (8 + 8 + 4 + 4 + 4 + 4);
+using card::kBatchBlocks;
+using card::kCapIn;
+using card::kCapOut;
+static_assert(kCapOut == (size_t)kBatchBlocks * bgzf::kMaxOut,
+              "a batch's outputs fill the stage's h_out");
 
 std::atomic<long long> g_launches{0};  // kernel launches, for the counters
 std::atomic<int> g_error{0};           // the first CUDA error, then kept
-
-struct Stage {
-  int device = -1;
-  cudaStream_t stream = nullptr;
-  cudaEvent_t done = nullptr;
-  uint8_t *h_in = nullptr, *h_out = nullptr, *h_desc = nullptr;
-  uint8_t *d_in = nullptr, *d_out = nullptr, *d_desc = nullptr;
-};
-
-std::mutex g_free_mu;
-std::vector<Stage*> g_free;  // never freed: a process keeps its stages
-
-struct StageHolder {
-  Stage* s = nullptr;
-  ~StageHolder() {
-    if (s) {
-      std::lock_guard<std::mutex> lk(g_free_mu);
-      g_free.push_back(s);
-    }
-  }
-};
-thread_local StageHolder t_stage;
-
-void free_stage(Stage* s) {
-  if (s->stream) cudaStreamDestroy(s->stream);
-  if (s->done) cudaEventDestroy(s->done);
-  if (s->h_in) cudaFreeHost(s->h_in);
-  if (s->h_out) cudaFreeHost(s->h_out);
-  if (s->h_desc) cudaFreeHost(s->h_desc);
-  if (s->d_in) cudaFree(s->d_in);
-  if (s->d_out) cudaFree(s->d_out);
-  if (s->d_desc) cudaFree(s->d_desc);
-  delete s;
-}
-
-cudaError_t make_stage(int device, Stage** out) {
-  Stage* s = new Stage();
-  s->device = device;
-  cudaError_t e;
-  if ((e = cudaStreamCreateWithFlags(&s->stream, cudaStreamNonBlocking)) ||
-      (e = cudaEventCreateWithFlags(
-           &s->done, cudaEventBlockingSync | cudaEventDisableTiming)) ||
-      (e = cudaMallocHost(&s->h_in, kCapIn)) ||
-      (e = cudaMallocHost(&s->h_out, kCapOut)) ||
-      (e = cudaMallocHost(&s->h_desc, kDescBytes)) ||
-      (e = cudaMalloc(&s->d_in, kCapIn)) ||
-      (e = cudaMalloc(&s->d_out, kCapOut)) ||
-      (e = cudaMalloc(&s->d_desc, kDescBytes))) {
-    free_stage(s);  // the call fails, and with it the load
-    return e;
-  }
-  *out = s;
-  return cudaSuccess;
-}
-
-// The calling thread's stage on ``device``: its own, one from the free
-// list, or a new one.
-cudaError_t stage_for(int device, Stage** out) {
-  Stage*& mine = t_stage.s;
-  if (mine && mine->device != device) {
-    std::lock_guard<std::mutex> lk(g_free_mu);
-    g_free.push_back(mine);
-    mine = nullptr;
-  }
-  if (!mine) {
-    std::lock_guard<std::mutex> lk(g_free_mu);
-    for (size_t i = 0; i < g_free.size(); ++i) {
-      if (g_free[i]->device == device) {
-        mine = g_free[i];
-        g_free.erase(g_free.begin() + i);
-        break;
-      }
-    }
-  }
-  if (!mine) {
-    cudaError_t e = make_stage(device, &mine);
-    if (e != cudaSuccess) {
-      mine = nullptr;
-      return e;
-    }
-  }
-  *out = mine;
-  return cudaSuccess;
-}
 
 // A batch's descriptors, one array each, carved from one buffer.
 struct Desc {
@@ -190,8 +97,8 @@ static cudaError_t inflate_blocks(int device, const void* comp,
   int* st = static_cast<int*>(status);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  Stage* s;
-  if ((e = stage_for(device, &s)) != cudaSuccess) return e;
+  card::Stage* s;
+  if ((e = card::stage_for(device, &s)) != cudaSuccess) return e;
   const Desc h = carve(s->h_desc), d = carve(s->d_desc);
   int b = 0;
   while (b < n_blocks) {
@@ -234,8 +141,7 @@ static cudaError_t inflate_blocks(int device, const void* comp,
                              cudaMemcpyDeviceToHost, s->stream)) ||
         (e = cudaMemcpyAsync(h.st, d.st, (size_t)n * 4,
                              cudaMemcpyDeviceToHost, s->stream)) ||
-        (e = cudaEventRecord(s->done, s->stream)) ||
-        (e = cudaEventSynchronize(s->done)))
+        (e = card::wait(s)))
       return e;
     for (int i = 0; i < n; ++i) {
       st[which[i]] = h.st[i];

@@ -150,13 +150,14 @@ class _QuirkCarry:
 
 
 def _card_inflate_on(dev):
-    """``dev``; a CUDA device also takes the region loads' BGZF blocks
-    (the kernels' ``sniper_card_inflate``, registered with the native
-    loader)."""
+    """``dev``; a CUDA device also takes the region loads' BGZF blocks and
+    their pileup builds (the kernels' ``sniper_card_inflate`` and
+    ``sniper_card_pileup``, registered with the native loader)."""
     if dev.type == "cuda":
         from ..ops import build
 
         native.set_card_inflate(build.card_inflate_address(), dev.index)
+        native.set_card_pileup(build.card_pileup_addresses())
     return dev
 
 
@@ -188,8 +189,10 @@ def call_pair_windows(
         require_native("the windowed driver (region loads)")
         if device is None and (precision == "fast" or not ref_fasta):
             raise ValueError(f"{precision} precision needs a device here")
-        # the region loads inflate on the card once this call has one
+        # the region loads inflate and build on the card once this call
+        # has one
         native.set_card_inflate(None)
+        native.set_card_pileup(None)
         dev = functools.cache(lambda: _card_inflate_on(resolve_device(device)))
         if precision == "fast":
             dev()  # a missing card fails the run before any load

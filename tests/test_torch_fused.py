@@ -223,7 +223,8 @@ def test_assembly10_launch_needs_the_card():
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
             "int": ctypes.c_int, "long long": ctypes.c_longlong,
-            "const char*": ctypes.c_char_p}
+            "double": ctypes.c_double, "const char*": ctypes.c_char_p,
+            "void": None}
 _EXTERN_C = re.compile(
     r'extern\s+"C"\s+(?P<ret>[\w\s]+?\*?)\s*(?P<name>sniper_\w+)\s*'
     r'\((?P<args>[^)]*)\)\s*\{')
@@ -244,7 +245,7 @@ def _c_functions():
 
 def test_every_c_function_is_bound():
     assert set(_c_functions()) == set(build.SIGNATURES)
-    assert len(build.SIGNATURES) == 13
+    assert len(build.SIGNATURES) == 16
 
 
 @pytest.mark.parametrize("name", sorted(build.SIGNATURES))

@@ -36,7 +36,8 @@ from somatic_sniper_tpu_torch.utils.stats import STATS, RunStats  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 WINDOW = 1000
 PHASES = [f"native.{p}" for p in native.LOAD_PHASES]
-COUNTERS = [f"native.{c}" for c in native.INFLATE_COUNTERS]
+COUNTERS = [f"native.{c}"
+            for c in native.INFLATE_COUNTERS + native.BUILD_COUNTERS]
 
 
 def _pair(data_dir):
