@@ -1,13 +1,9 @@
 """Smoke run of the torch port on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --cards   # the split over two cards or more
     python3 chip_smoke.py --score-sweep  # score_columns at small slabs
 
-The second form needs two GPUs or more and runs only the split over
-distinct cards (phase 12 over ``[cuda:0, cuda:1]`` and every card, and
-the 10 Mb pair with ``prefilter=False`` whole and split); see ``cards``.
-The third times ``score_columns`` alone over slab sizes and depths that
+The second form times ``score_columns`` alone over slab sizes and depths that
 ``SNIPER_SLAB_B`` / ``SNIPER_SLAB_D`` reach; see ``score_sweep``.
 
 Phases (each raises on failure, so a failed phase exits non-zero and the
@@ -49,7 +45,7 @@ closing ``{"ok": true, ...}`` line is never printed):
    their pileups and pure-reference flags built through
    ``pileup_build`` (``native.regions_card_built`` > 0, none built on the
    host, ``launches_pileup_card`` a region at most); the windowed runs of
-   phases 9, 10, 15 and 19 are held to the same;
+   phases 9, 10 and 15 are held to the same;
 5. fast precision on the card against the golden pair's expected VCF;
 6. the batch path with full-u32 batches (the no-reference route, with
    the reference's ref16 so sites emit) on the 10 Mb pair, whole-file,
@@ -57,8 +53,7 @@ closing ``{"ok": true, ...}`` line is never printed):
    and ``assembly10`` only for batches deeper than 255); each batch's
    route (a key's first eager, later ones replays of its captured
    step, at least one replay; no retired eager route
-   ``batches_eager_deep`` / ``batches_eager_split``) and the graph
-   pool's MiB;
+   ``batches_eager_deep``) and the graph pool's MiB;
 7. the port's CLI with the native library missing (pure-Python decode,
    u16 batches through ``glfgen16``) on a 1 Mb pair at 30x, in a
    child process, against the port's native exact output, with the
@@ -89,15 +84,6 @@ closing ``{"ok": true, ...}`` line is never printed):
     exact output, its routes and pool as in phase 6, and the golden
     pair through the CLI with the native library missing, exact, equal
     to ``tests/data/expected.vcf``;
-12. ``sharded_call_batch`` over ``[cuda:0, cuda:0]`` (two streams) at
-    (65536, 40) full-u32 and (8192, 48) raw lanes equal to the unsplit
-    call, and ``dryrun_multichip`` over as many GPUs as the machine has;
-    then the captured split (``parallel.sharding.graphed_split``: one
-    captured step a part) at the same two shapes, the slab step and the
-    fast batch step, three input sets each: count and rows byte-equal to
-    the unsplit captured step and to the eager split, four fused
-    launches a call, its ms and host queue ms beside the unsplit graphed
-    step's and the eager split's, each part's capture ms and the pool;
 13. ``utils.mfu.bench_kernel`` on the card at (8192, 48), the production
     slab, and at (32768, 64): every step launched ``glfgen32`` twice,
     ``score_columns`` once and no stand-alone kernel, the slab step
@@ -142,11 +128,6 @@ closing ``{"ok": true, ...}`` line is never printed):
     assembly tables before that key's replay: its error word set, and
     ``collect_pending`` raising the stand-alone ``assembly10``'s
     ValueError;
-19. phase 15's ``prefilter=False`` run under ``forced_mesh([cuda:0,
-    cuda:0])``: bytes (so the sha256) equal to phase 4's fast output,
-    every slab split and replayed a part a captured step
-    (``slabs_split`` = ``slabs_graphed`` = ``slabs_dispatched``, glfgen32
-    four times a slab), wall, cols/s and the graph pool;
 20. ``bgzf_inflate`` at the region load's shape: every BGZF block of a
     250 kb window of the benchmark's generator at 30x (~210 blocks)
     through ``sniper_card_inflate``, byte-equal to zlib, one launch;
@@ -177,6 +158,8 @@ closing ``{"ok": true, ...}`` line is never printed):
     thread's wait on the card) beside the host build's, the four
     kernels' device ms (torch.profiler) and their byte bound in the
     ``kernels`` line (the 300x window under ``deep_window``).
+
+Numbers 12 and 19 are not used.
 
 ``python3 chip_smoke.py --deep`` runs phases 1, 2, 17 at the slab tiers
 from 255 up, 21 and 22; ``python3 chip_smoke.py --pileup`` phases 1, 2
@@ -1164,11 +1147,9 @@ def check_batch_launches(launches: dict, stats: dict, fused: str,
 
 
 BATCH_ROUTES = ("batches_dispatched", "batches_graphed", "batch_captures",
-                "batches_eager_first", "batches_graphed_split",
-                "batch_captures_split", "batches_split", "batches_unsplit",
-                "batches_eager_cpu")
-# the eager routes of earlier builds: none may run on a card any more
-RETIRED_ROUTES = ("batches_eager_deep", "batches_eager_split")
+                "batches_eager_first", "batches_eager_cpu")
+# the eager route of earlier builds: it may not run on a card any more
+RETIRED_ROUTES = ("batches_eager_deep",)
 
 
 def batch_keys(stats: dict) -> dict:
@@ -1185,19 +1166,14 @@ def batch_keys(stats: dict) -> dict:
 
 
 def check_batch_routes(stats: dict, what: str, pool_mib: float,
-                       must_replay: bool,
-                       split: bool = False) -> None:
+                       must_replay: bool) -> None:
     """A batch run's routes on the card: every batch dispatched is a
     key's first (eager) or a replay of its key's captured step, at
     every depth (a fast batch deeper than 255 included); one capture
     for each key that came twice; no CPU route and no retired eager
-    route.  With ``split`` every batch went in parts over the mesh (one
-    captured step a part), else none did.  With ``must_replay``, at
-    least one key replayed."""
+    route.  With ``must_replay``, at least one key replayed."""
     routes = {k: int(stats.get(k, 0)) for k in BATCH_ROUTES}
     keys = batch_keys(stats)
-    graphed, captures = ("batches_graphed_split", "batch_captures_split") \
-        if split else ("batches_graphed", "batch_captures")
     print(f"  {what}: routes {json.dumps(routes)}; {len(keys)} keys "
           "(encoding, precision, B, D: batches) " + ", ".join(
               f"{e} {p} {B}x{D}: {n}" for (e, p, B, D), n in
@@ -1205,15 +1181,11 @@ def check_batch_routes(stats: dict, what: str, pool_mib: float,
           f"{pool_mib:.1f} MiB", flush=True)
     retired = {k: stats[k] for k in RETIRED_ROUTES if stats.get(k)}
     if (routes["batches_dispatched"] != routes["batches_eager_first"]
-            + routes[graphed]
-            or routes["batches_graphed_split" if not split
-                      else "batches_graphed"]
+            + routes["batches_graphed"]
             or routes["batches_eager_first"] != len(keys)
-            or routes[captures] != sum(n >= 2 for n in keys.values())
-            or routes["batches_split"] != (routes["batches_dispatched"]
-                                           if split else 0)
+            or routes["batch_captures"] != sum(n >= 2 for n in keys.values())
             or routes["batches_eager_cpu"] or retired
-            or (must_replay and routes[graphed] == 0)):
+            or (must_replay and routes["batches_graphed"] == 0)):
         raise AssertionError(f"{what}: routes {routes}, keys {keys}, "
                              f"retired routes {retired}")
 
@@ -1493,203 +1465,6 @@ def exact_golden_without_native(out_dir: Path) -> None:
           f"{b['batches_dispatched']} batches, {b['device_columns']} device "
           f"columns, wall {time.perf_counter() - t0:.3f} s (child process)",
           flush=True)
-
-
-def split_batches(dtabs, dev, torch, mesh=None) -> dict:
-    """Phase 12: ``sharded_call_batch`` over ``mesh``, by default the one
-    card twice (two parts, each on a stream of its own), against the
-    unsplit call, every field equal; then the dry run over the
-    machine's GPUs.  Returns the launches of the split calls."""
-    from somatic_sniper_tpu_torch.models.glfgen import ColumnBatch
-    from somatic_sniper_tpu_torch.models.somatic import call_batch
-    from somatic_sniper_tpu_torch.models.tables import ModelParams
-    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
-    from somatic_sniper_tpu_torch.parallel.dryrun import dryrun_multichip
-    from somatic_sniper_tpu_torch.parallel.sharding import sharded_call_batch
-    from somatic_sniper_tpu_torch.runner import dtabs_for
-
-    params = ModelParams()
-    mesh = mesh or [dev, dev]
-    n_launch = 2 * len(mesh)
-    total = {}
-    for B, D, raw in ((65536, 40, False), (8192, 48, True)):
-        batches = []
-        for seed in (1, 2):
-            if raw:
-                s, nk, r = random_slab_lanes(B, D, seed)
-                # the raw depth may count deletions the lanes dropped
-                batches.append((s, nk + (nk > 0), r, nk))
-            else:
-                batches.append(random_u32_lanes(B, D, seed))
-        ref16 = batches[0][2]
-        tumor, normal = (ColumnBatch(*(torch.from_numpy(a) for a in
-                                       (b[0], b[1], ref16, *b[3:])))
-                         for b in batches)
-        on_card = [ColumnBatch(*(None if t is None else t.to(dev)
-                                 for t in cb)) for cb in (tumor, normal)]
-        whole = call_batch(*on_card, dtabs, params)
-        times = {}
-        for where, pair in (("host", (tumor, normal)), ("card", on_card)):
-            gk.reset_launches()
-            split = sharded_call_batch(mesh, *pair, dtabs_for(params, "fast"),
-                                       params)
-            torch.cuda.synchronize()
-            name = "glfgen32" if raw else "glfgen"
-            # a part: glfgen of two samples, then score_columns
-            if (gk.LAUNCHES[name] != n_launch
-                    or gk.LAUNCHES["score_columns"] != len(mesh)
-                    or sum(gk.LAUNCHES.values()) != n_launch + len(mesh)):
-                raise AssertionError(f"{len(mesh)} parts of two samples "
-                                     f"launched {gk.LAUNCHES}")
-            total[name] = total.get(name, 0) + n_launch
-            total["score_columns"] = (total.get("score_columns", 0)
-                                      + len(mesh))
-            for f, a, b in zip(whole._fields, split, whole):
-                if (a is None) != (b is None) or (
-                        a is not None and not torch.equal(a, b)):
-                    raise AssertionError(
-                        f"the split call differs from the unsplit one in "
-                        f"{f} at {(B, D)}, batches on the {where}")
-            times[where] = call_ms(lambda: sharded_call_batch(
-                mesh, *pair, dtabs_for(params, "fast"), params), torch)
-        unsplit_ms = call_ms(lambda: call_batch(*on_card, dtabs, params),
-                             torch)
-        names = ", ".join(str(d) for d in mesh)
-        print(f"  B={B} D={D} {'raw lanes' if raw else 'full u32'}: split "
-              f"over [{names}] equal to the unsplit call in every "
-              f"field, {int(whole.emit.sum())} emitted; per call: split "
-              f"from the host {times['host']:.3f} ms, split on the card "
-              f"{times['card']:.3f} ms, unsplit on the card "
-              f"{unsplit_ms:.3f} ms", flush=True)
-    dryrun_multichip(torch.cuda.device_count())
-    return total
-
-
-def whole_batch(graphs, stacked, meta, dtabs, params, dev, spec):
-    """One batch through its key's captured step, whole: the runner's
-    unsplit route (``graphed_split`` over one device, one part)."""
-    from somatic_sniper_tpu_torch.parallel.sharding import graphed_split
-
-    return graphed_split(graphs, [dev], stacked, meta, lambda _: dtabs,
-                         params, spec)
-
-
-def graphed_split_against_unsplit(dev, torch, mesh=None) -> dict:
-    """Phase 12, the captured split: ``parallel.sharding.graphed_split``
-    over ``mesh`` (``[cuda:0, cuda:0]`` by default; one captured step a
-    part, keyed by the part's index) at (8192, 48) raw lanes (the slab
-    step) and (65536, 40) full u32 (the fast batch step), in a registry
-    of its own, three
-    input sets a shape: its count and rows byte-equal to the unsplit
-    captured step's and to the eager split's (``sharded_call_batch``
-    compacted on the first device); its ms on the stream and the host's
-    ms to queue it (pinned uploads, two replays, the merge) beside the
-    unsplit step's (pinned upload, one replay) and the eager split's;
-    each part's capture ms and the pool's MiB.  Returns the launches of
-    the graphed split calls."""
-    import numpy as np
-
-    from somatic_sniper_tpu_torch.models.somatic import (
-        compact_rows, packed_column_batches, stacked_column_batches)
-    from somatic_sniper_tpu_torch.models.step_graph import (SLAB,
-                                                            SlabStepGraph,
-                                                            StepSpec)
-    from somatic_sniper_tpu_torch.models.tables import (ModelParams,
-                                                        build_tables,
-                                                        device_tables)
-    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
-    from somatic_sniper_tpu_torch.parallel.sharding import (
-        graphed_split, sharded_call_batch)
-    from somatic_sniper_tpu_torch.runner import MAX_EMIT, dtabs_for
-
-    params = ModelParams()
-    dtabs = device_tables(build_tables(params), dev)
-    dtabs_of = dtabs_for(params, "fast")
-    mesh = mesh or [dev, dev]
-    n_parts = len(mesh)
-    graphs = SlabStepGraph()
-    total = {}
-    for B, D, slab in ((8192, 48, True), (65536, 40, False)):
-        spec = SLAB if slab else StepSpec(False, "fast", min(MAX_EMIT, B))
-        K = B if slab else spec.max_emit
-        name = "glfgen32" if slab else "glfgen"
-        known = set(graphs.captures())
-        routes = []
-        for seed in (1, 2, 3):
-            if slab:
-                stacked, meta = random_packed_slab(B, D, seed)
-                stacked = stacked.view(np.int32)
-                host = packed_column_batches(torch.from_numpy(stacked),
-                                             torch.from_numpy(meta))
-            else:
-                stacked, meta = batch_upload(B, D, seed, False)
-                host = stacked_column_batches(torch.from_numpy(stacked),
-                                              torch.from_numpy(meta), False)
-            if slab:
-                n_u, rows_u = graphs.run(stacked, meta, dtabs, params, dev)
-            else:
-                _, whole = whole_batch(graphs, stacked, meta, dtabs, params,
-                                       dev, spec)
-                n_u = int(whole.count)
-                rows_u = whole.rows[:n_u].cpu().numpy()
-            eager = compact_rows(sharded_call_batch(mesh, *host, dtabs_of,
-                                                    params), K)
-            gk.reset_launches()
-            route, res = graphed_split(graphs, mesh, stacked, meta, dtabs_of,
-                                       params, spec)
-            launches = dict(gk.LAUNCHES)
-            routes.append(route)
-            n = int(res.count)
-            rows = res.rows.cpu().numpy()
-            if (n != n_u or n != int(eager.count) or n == 0
-                    or rows[:n].tobytes() != rows_u.tobytes()
-                    or rows.tobytes() != eager.rows.cpu().numpy().tobytes()
-                    or int(res.err) != 0):
-                raise AssertionError(
-                    f"the graphed split differs at {(B, D)}, set {seed}: "
-                    f"{n} rows against {n_u} unsplit, {int(eager.count)} "
-                    "eager split")
-            if (launches[name] != 2 * n_parts
-                    or launches["score_columns"] != n_parts
-                    or sum(launches.values()) != 3 * n_parts):
-                raise AssertionError(f"{n_parts} parts of two samples "
-                                     f"launched {launches}")
-            total[name] = total.get(name, 0) + 2 * n_parts
-            total["score_columns"] = (total.get("score_columns", 0)
-                                      + n_parts)
-        want = ["capture", "replay", "replay"] if slab else \
-            ["first", "capture", "replay"]
-        if routes != want:
-            raise AssertionError(f"graphed split routes {routes}")
-        split_ms, split_q = step_times(lambda: graphed_split(
-            graphs, mesh, stacked, meta, dtabs_of, params, spec), torch)
-        step = graphs.step(B, D, dtabs, params, dev, spec)
-
-        def unsplit():
-            step.upload(stacked, meta)
-            step.replay()
-
-        unsplit_ms, unsplit_q = step_times(unsplit, torch)
-        eager_ms, eager_q = step_times(lambda: compact_rows(
-            sharded_call_batch(mesh, *host, dtabs_of, params), K), torch)
-        caps = {k[6]: v for k, v in graphs.captures().items()
-                if k not in known and k[6] is not None}
-        what = "raw lanes (slab step)" if slab else "full u32 (batch step)"
-        names = ", ".join(str(d) for d in mesh)
-        pools = ", ".join(f"{d}: {graphs.pool_bytes(d) / 2**20:.1f}"
-                          for d in dict.fromkeys(mesh))
-        print(f"  B={B} D={D} {what}: graphed split over [{names}] "
-              f"byte-equal to the unsplit graphed step and to the eager "
-              f"split on three sets ({n} rows of the last), routes "
-              f"{routes}, {name} {2 * n_parts} and score_columns {n_parts} "
-              f"a call; per call: graphed "
-              f"split {split_ms:.3f} ms (queued in {split_q:.3f}), unsplit "
-              f"graphed {unsplit_ms:.3f} ms (queued in {unsplit_q:.3f}), "
-              f"eager split {eager_ms:.3f} ms (queued in {eager_q:.3f}); "
-              f"part captures " + ", ".join(
-                  f"{i}: {1e3 * v:.1f} ms" for i, v in sorted(caps.items()))
-              + f"; pool MiB {pools}", flush=True)
-    return total
 
 
 # fields that pass through the f32 class sums: the kernel and its plain
@@ -2030,8 +1805,8 @@ def graphed_batches_against_eager(keys, dev, torch) -> None:
                           dict(gk.LAUNCHES)))
         for i, want in ((0, "first"), (0, "capture"), (1, "replay")):
             gk.reset_launches()
-            route, res = whole_batch(graphs, *sets[i], dtabs, params, dev,
-                                     spec)
+            route, res = graphs.run_batch(*sets[i], dtabs, params, spec,
+                                          dev)
             n = int(res.count)
             got = (n, res.rows[:n].cpu().numpy().tobytes(),
                    dict(gk.LAUNCHES))
@@ -2210,7 +1985,7 @@ def records_and_prefilter(pair: Path, out_dir: Path, fast_lines: list[str],
             raise AssertionError(f"{what}: {slabs} slabs launched {launches}")
         check_graphed(stats, what)
     scored = {k: int(stats.get(k, 0)) for k in
-              ("device_columns", "host_deep_columns", "host_tail_columns")}
+              ("device_columns", "host_deep_columns")}
     if sum(scored.values()) != n_cols:
         raise AssertionError(f"prefilter=False scored {scored}, the pair has "
                              f"{n_cols} columns")
@@ -2226,100 +2001,6 @@ def records_and_prefilter(pair: Path, out_dir: Path, fast_lines: list[str],
           f"{launches['glfgen32']}, score_columns "
           f"{launches['score_columns']}", flush=True)
     return launches
-
-
-def prefilter_off_once(pair: Path, out: Path, dev, mesh):
-    """The 10 Mb pair through ``call_pair_windows(prefilter=False)``,
-    fast on the card, into ``out``: every slab split over ``mesh`` (a
-    list of devices), or with ``mesh`` None whole on ``dev``
-    (``SNIPER_NO_MESH``), counters from zero.  Returns (its body lines,
-    wall s, the STATS snapshot, the launches)."""
-    from somatic_sniper_tpu_torch.ops import glfgen_kernels as gk
-    from somatic_sniper_tpu_torch.output.formatters import get_formatter
-    from somatic_sniper_tpu_torch.output.records import HeaderData
-    from somatic_sniper_tpu_torch.parallel.sharded import call_pair_windows
-    from somatic_sniper_tpu_torch.runner import forced_mesh
-    from somatic_sniper_tpu_torch.utils.stats import STATS
-
-    args = (str(pair / "tumor.bam"), str(pair / "normal.bam"),
-            str(pair / "ref.fa"))
-    saved = os.environ.pop("SNIPER_NO_MESH", None)
-    if mesh is None:
-        os.environ["SNIPER_NO_MESH"] = "1"
-    try:
-        with forced_mesh(mesh):
-            STATS.reset()
-            gk.reset_launches()
-            t0 = time.perf_counter()
-            with open(out, "w") as fh:
-                get_formatter("vcf")[0](fh, HeaderData(
-                    refseq=args[2], normal_sample_id="NORMAL",
-                    tumor_sample_id="TUMOR"))
-                for _wi, _win, recs in call_pair_windows(
-                        *args, precision="fast", device=dev, fmt="vcf",
-                        prefilter=False):
-                    fh.writelines(recs)
-            wall = time.perf_counter() - t0
-    finally:
-        os.environ.pop("SNIPER_NO_MESH", None)
-        if saved is not None:
-            os.environ["SNIPER_NO_MESH"] = saved
-    return body_lines(out), wall, STATS.snapshot(), dict(gk.LAUNCHES)
-
-
-def split_prefilter_off(pair: Path, out_dir: Path, fast_lines: list[str],
-                        n_cols: int, dev, mesh=None) -> dict:
-    """Phase 19: phase 15's ``prefilter=False`` run (every column of the
-    10 Mb pair on the card) under ``forced_mesh(mesh)``, by default
-    ``[cuda:0, cuda:0]``: every slab split in one part a device, each
-    replayed from its own captured step; bytes equal to ``fast_lines``
-    (phase 4's fast output, so its sha256 is phase 15's); ``slabs_split``
-    = ``slabs_graphed`` = ``slabs_dispatched``, glfgen32 twice a part a
-    slab, no batch route; wall, cols/s and the graph pools.  Returns
-    (the launches, wall s)."""
-    from somatic_sniper_tpu_torch.models.step_graph import STEP_GRAPHS
-    from somatic_sniper_tpu_torch.utils.stats import STATS
-
-    mesh = mesh or [dev, dev]
-    names = ", ".join(str(d) for d in mesh)
-    lines, wall, stats, launches = prefilter_off_once(
-        pair, out_dir / f"windows_prefilter_split_{len(mesh)}.vcf", dev, mesh)
-    if lines != fast_lines:
-        first = next((i for i, (a, b) in enumerate(zip(lines, fast_lines))
-                      if a != b), min(len(lines), len(fast_lines)))
-        raise AssertionError(
-            f"prefilter=False split over [{names}]: {len(lines)} "
-            f"lines against the unsplit {len(fast_lines)}, the first "
-            f"difference at line {first}: "
-            f"{lines[first:first + 1]} against "
-            f"{fast_lines[first:first + 1]}")
-    print_digest(lines)
-    launches.update(check_card_load(stats,
-                                    f"prefilter=False over [{names}]"))
-    slabs = int(stats.get("slabs_dispatched", 0))
-    counts = {k: int(stats.get(k, 0)) for k in
-              ("slabs_dispatched", "slabs_split", "slabs_graphed",
-               "slabs_unsplit")}
-    batch_routes = {k: v for k, v in stats.items()
-                    if k.startswith(("batches_", "batch_captures"))}
-    if (slabs == 0 or counts["slabs_split"] != slabs
-            or counts["slabs_graphed"] != slabs or counts["slabs_unsplit"]
-            or launches["glfgen32"] != 2 * len(mesh) * slabs
-            or launches["score_columns"] != len(mesh) * slabs or batch_routes
-            or any(stats.get(k) for k in RETIRED_ROUTES)):
-        raise AssertionError(f"split prefilter=False: {counts}, launches "
-                             f"{launches}, batch routes {batch_routes}")
-    print("  stage times of the split prefilter=False run:\n"
-          + STATS.summary(), flush=True)
-    pools = ", ".join(f"{d}: {STEP_GRAPHS.pool_bytes(d) / 2**20:.1f}"
-                      for d in dict.fromkeys(mesh))
-    print(f"  prefilter=False over [{names}]: wall {wall:.3f} s "
-          f"({n_cols / wall:.0f} cols/s), bytes equal to the unsplit "
-          f"output; {counts}; glfgen32 {launches['glfgen32']}, "
-          f"score_columns {launches['score_columns']}; device "
-          f"columns {int(stats.get('device_columns', 0))}; graph pool MiB "
-          f"{pools}", flush=True)
-    return launches, wall
 
 
 # the inflate's window: one contig of a 250 kb window (the CLI's default
@@ -2550,8 +2231,8 @@ def deep_pair_windows(dev) -> tuple[dict, dict]:
     walls["exact"] = time.perf_counter() - t0
     n = {k: int(stats.get(k, 0)) for k in (
         "columns_scored", "device_columns", "device_columns_deep",
-        "host_deep_columns", "host_tail_columns", "slabs_dispatched",
-        "slabs_graphed", "slab_bytes_uploaded")}
+        "host_deep_columns", "slabs_dispatched", "slabs_graphed",
+        "slab_bytes_uploaded")}
     depths = {k: int(v) for k, v in stats.items()
               if k.startswith("slabs_at_depth_")}
     slabs = n["slabs_dispatched"]
@@ -2562,7 +2243,7 @@ def deep_pair_windows(dev) -> tuple[dict, dict]:
     if (n["columns_scored"] <= 0 or slabs <= 0
             or n["device_columns_deep"] != n["device_columns"]
             or n["device_columns"] != n["columns_scored"]
-            or n["host_deep_columns"] or n["host_tail_columns"]
+            or n["host_deep_columns"]
             or n["slabs_graphed"] != slabs
             or any(int(k.rpartition("_")[2]) <= 255 for k in depths)):
         raise AssertionError(f"deep300: the survivors were not scored on "
@@ -2802,83 +2483,6 @@ def pileup() -> int:
     return 0
 
 
-def cards() -> int:
-    """``python3 chip_smoke.py --cards``, on a machine with two cards or
-    more: the split over distinct cards, which the one-card smoke runs
-    only as ``[cuda:0, cuda:0]``.  Phase 12's eager split and dry run
-    over every card, and its captured split over
-    ``[cuda:0, cuda:1]`` and over every card, held byte for byte to the
-    unsplit graphed step and the eager split; then the 10 Mb pair with
-    ``prefilter=False`` whole on cuda:0 (``SNIPER_NO_MESH``), split over
-    two cards and over every card (the default ``data_mesh``), twice
-    in turn, each split run's bytes equal to the whole run's, with the
-    wall and cols/s of each.  Ends with the same last line as the
-    smoke."""
-    import torch
-
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n < 2:
-        print(f"chip_smoke --cards: {n} CUDA device(s), two or more "
-              "needed", file=sys.stderr)
-        return 2
-    from somatic_sniper_tpu_torch.device import resolve_device
-    from somatic_sniper_tpu_torch.io import native
-    from somatic_sniper_tpu_torch.models.tables import (ModelParams,
-                                                        build_tables,
-                                                        device_tables)
-    from somatic_sniper_tpu_torch.ops import build
-
-    t_start = time.perf_counter()
-    phase("1 cards")
-    card = card_line()
-    print(card, flush=True)
-    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {n} "
-          f"device(s); peer access 0<->1: "
-          f"{torch.cuda.can_device_access_peer(0, 1)}", flush=True)
-    dev = resolve_device("cuda")
-    phase("2 build")
-    if native.get_lib() is None:
-        raise AssertionError("the port's native host library did not build")
-    build.build()
-    build.load_library()
-    meshes = [[torch.device("cuda", i) for i in range(k)]
-              for k in sorted({2, n})]
-    phase("12 the split over distinct cards, and the dry run")
-    for mesh in meshes:
-        split_batches(device_tables(build_tables(ModelParams()), dev), dev,
-                      torch, mesh)
-        graphed_split_against_unsplit(dev, torch, mesh)
-    phase("19 prefilter=False: 10 Mb pair, whole and split over cards")
-    pair, n_cols = ensure_sim("pair_10mb", SIM, index=True)
-    out_dir = DATA / "out"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    walls = {}
-    for turn in (1, 2):
-        lines, wall, stats, launches = prefilter_off_once(
-            pair, out_dir / "windows_prefilter_whole.vcf", dev, None)
-        if (int(stats.get("slabs_split", 0))
-                or launches["glfgen32"] != 2 * int(stats["slabs_dispatched"])):
-            raise AssertionError(f"the whole run split: {stats}")
-        if turn == 1:
-            print_digest(lines)
-        print(f"  turn {turn}, whole on {dev}: wall {wall:.3f} s "
-              f"({n_cols / wall:.0f} cols/s)", flush=True)
-        walls.setdefault("whole", []).append(wall)
-        for mesh in meshes:
-            _, wall = split_prefilter_off(pair, out_dir, lines, n_cols, dev,
-                                          mesh)
-            walls.setdefault(f"split_{len(mesh)}", []).append(wall)
-    print(f"  {card}: prefilter=False walls (s, two turns each) "
-          f"{json.dumps(walls)}; {n_cols} columns", flush=True)
-    print(f"  --cards wall {time.perf_counter() - t_start:.1f} s",
-          flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": n}}), flush=True)
-    return 0
-
-
 NO_TORCH_CHILD = """\
 import sys
 sys.modules["jax"] = None
@@ -3062,16 +2666,13 @@ def main() -> int:
             f"{w:.3f} s ({n_cols / w:.0f} cols/s)" for w in ws), flush=True)
     print("  stage times of the second fast run:\n" + fast_summary,
           flush=True)
-    for key in ("slabs_dispatched", "device_columns", "host_deep_columns",
-                "host_tail_columns"):
+    for key in ("slabs_dispatched", "device_columns", "host_deep_columns"):
         print(f"  {key} {int(stats.get(key, 0))}", flush=True)
     print(f"  slab depths {depths}, launches {launches}", flush=True)
     print(f"  contract ok, hist {json.dumps(hist(tol), sort_keys=True)}",
           flush=True)
     if int(stats.get("device_columns", 0)) <= 0:
         raise AssertionError("no column was scored on the device")
-    if int(stats.get("host_tail_columns", 0)) != 0:
-        raise AssertionError("the run's end was scored on the host")
     # one fused launch a sample a slab, and no stand-alone kernel: no
     # slab waits on assembly10's error word
     if (slabs == 0 or launches["glfgen32"] != 2 * slabs
@@ -3128,10 +2729,6 @@ def main() -> int:
     del loaded
     exact_golden_without_native(out_dir)
 
-    phase("12 the batch split over devices, and the dry run")
-    launches_split = split_batches(dtabs, dev, torch)
-    launches_split_graphed = graphed_split_against_unsplit(dev, torch)
-
     phase("13 bench_kernel: the scoring step on the card")
     bench_kernel_on_card(dev, torch)
 
@@ -3155,10 +2752,6 @@ def main() -> int:
          for key in batch_keys(st)} | {("u32", "fast", 4096, 300)},
         dev, torch)
     deep_error_word(dev, torch)
-
-    phase("19 prefilter=False split over [cuda:0, cuda:0]: 10 Mb pair")
-    launches_nopf_split, _ = split_prefilter_off(pair, out_dir, fast_lines,
-                                                 n_cols, dev)
 
     phase("20 the card inflate at the region load's shape")
     inflate_t, inflate_shape = inflate_on_card(dev, torch)
@@ -3253,18 +2846,12 @@ def main() -> int:
     print(json.dumps({"kernels": kernels,
                       "launch_floor_ms": floor_ms,
                       "launch_floor_grid": list(FLOOR_GRID),
-                      # launches of the paths of phases 9, 10 and 12,
+                      # launches of the paths of phases 9, 10 and 15,
                       # each counted from zero over its own run
                       "path_launches": {
                           **{f"jobs_{n}": v
                              for n, v in launches_jobs.items()},
                           "collective_2": launches_coll,
-                          "split_2_streams": launches_split,
-                          "split_2_graphed": launches_split_graphed,
-                          "windows_prefilter_off_split": {
-                              k: launches_nopf_split[k]
-                              for k in ("glfgen32", "score_columns",
-                                        "bgzf_inflate", "pileup_build")},
                           "windows_prefilter_off": {
                               k: launches_nopf[k]
                               for k in ("glfgen32", "score_columns",
@@ -3313,8 +2900,6 @@ def score_sweep() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--cards"]:
-        sys.exit(cards())
     if sys.argv[1:] == ["--score-sweep"]:
         sys.exit(score_sweep())
     if sys.argv[1:] == ["--deep"]:
@@ -3322,6 +2907,6 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--pileup"]:
         sys.exit(pileup())
     if sys.argv[1:]:
-        sys.exit("usage: python3 chip_smoke.py [--cards | --score-sweep | "
-                 "--deep | --pileup]")
+        sys.exit("usage: python3 chip_smoke.py [--score-sweep | --deep | "
+                 "--pileup]")
     sys.exit(main())

@@ -239,7 +239,7 @@ def _maybe_init_distributed(args) -> None:
         SNIPER_PROCESS_ID=I python -m somatic_sniper_tpu_torch.cli.main ...
 
     Each process then defaults to genome shard I of N (overridable with
-    --shards/--shard-index) and scores its span on its local devices, as
+    --shards/--shard-index) and scores its span on its one device, as
     its --device and CUDA_VISIBLE_DEVICES say; per-process outputs
     concatenate via scripts.merge_shards, or through --merge collective.
     The group is gloo's (parallel/collective.py says why).  Its timeout,

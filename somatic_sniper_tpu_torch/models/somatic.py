@@ -138,7 +138,7 @@ def call_batch_compact(tumor: ColumnBatch, normal: ColumnBatch,
 
 def compact_rows(res: CallResult, max_emit: int) -> CompactResult:
     """The compaction of call_batch_compact over a CallResult already
-    scored (by one call, or by parts gathered on one device)."""
+    scored."""
     fields = torch.stack([getattr(res, f) for f in COMPACT_FIELDS], dim=1)
     return _compact(ScoredColumns(res.emit, fields, res.tumor_dq,
                                   res.normal_dq), res.err, max_emit)
@@ -162,45 +162,6 @@ def _compact(scored: ScoredColumns, err, max_emit: int) -> CompactResult:
                      dim=1).to(I32)
     return CompactResult(count=emit_i.sum(dtype=I32), rows=rows,
                          err=_no_error(dev) if err is None else err)
-
-
-def merge_compact(parts: list[CompactResult], part_b: int,
-                  max_emit: int) -> CompactResult:
-    """The compaction of a whole batch from the compactions of its
-    parts, part i holding columns [i * part_b, (i + 1) * part_b) and
-    each part's rows its local column index: the rows of
-    ``compact_rows`` over the whole batch, byte for byte.
-
-    All parts lie on one device and have one shape (Kp rows, Kp =
-    min(max_emit, part_b)).  Row j of the whole is the j-th emitted
-    column, taken from part i's first emitted rows at offset sum(count
-    of the parts before i), its index shifted by the part's first
-    column; rows past ``count`` repeat column 0, whose row part 0 holds
-    at its row 0 (column 0 emitted, or none emitted) or else at its last
-    row (a part that emitted fewer than Kp columns pads with it; one that
-    emitted Kp or more leaves no row of the whole to pad).  A part that
-    overflowed its Kp rows lost only rows past the whole's K = min(
-    max_emit, n * part_b): its Kp >= K then.  Nothing waits on the
-    device."""
-    n = len(parts)
-    first = parts[0].rows
-    dev = first.device
-    Kp, F = first.shape
-    K = min(max_emit, n * part_b)
-    counts = torch.stack([p.count for p in parts])
-    offsets = torch.cumsum(counts, dim=0, dtype=I32) - counts
-    r = torch.arange(n * Kp, device=dev)
-    part, j = r // Kp, r % Kp
-    dest = offsets[part] + j
-    dest = torch.where((j < counts[part]) & (dest < K), dest, K).long()
-    rows = torch.cat([p.rows for p in parts])
-    rows[:, 0] += (part * part_b).to(I32)
-    pad = torch.where(first[0, 0] == 0, first[0], first[Kp - 1])
-    # every row not written is column 0's; the dropped rows land in K
-    out = pad.expand(K + 1, F).contiguous()
-    out.index_copy_(0, dest, rows)
-    return CompactResult(count=counts.sum(dtype=I32), rows=out[:K],
-                         err=torch.stack([p.err for p in parts]).amax())
 
 
 def packed_column_batches(stacked, meta) -> tuple[ColumnBatch, ColumnBatch]:

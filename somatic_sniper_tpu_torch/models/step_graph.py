@@ -16,36 +16,35 @@ the rows are the eager step's bytes.  A ``StepSpec`` names the step:
   precision=...)`` over uint16 lanes [2, B, D] and metadata [7, B]
   (``packed16``), or int32 slot words and metadata [3, B].
 
-A graph reads and writes fixed addresses.  Each key (device, B, D,
-ModelParams, DeviceTables, StepSpec, part) owns static inputs of the
-spec's dtype and shape, pinned host buffers beside them, and the
-``count`` / ``rows`` / ``err`` its capture allocated; ``part`` is the
-index of one part of a slab or batch split over several devices
-(``run_parts``, the counterpart of the JAX package's step jitted over a
-mesh), so that two parts of one shape on one device keep their own.
-Every capture on a device draws on that device's one graph pool, so a
-capture reuses the blocks an earlier one freed (an exact key at (65536,
-40) frees ~900 MiB of f64 terms and ranks); the keys then share those
-blocks, so no two replays may overlap on the device and each replay's
-outputs are copied out before the next replay starts: a replay waits on
-an event of the device's last replay, whatever stream it is queued on,
-and the slab step copies its rows to pinned memory, the batch step and
-a part to tensors of their own on the same stream.  Replays on
-different devices do not wait on each other.
+A process scores on one device; several GPUs are reached through
+several processes (``--shards`` / ``--jobs``, see ``runner``).  A graph reads and writes
+fixed addresses.  Each key (device, B, D, ModelParams, DeviceTables,
+StepSpec) owns static inputs of the spec's dtype and shape, pinned host
+buffers beside them, and the ``count`` / ``rows`` / ``err`` its capture
+allocated.  Every capture on a device draws on that device's one graph
+pool, so a capture reuses the blocks an earlier one freed (an exact key
+at (65536, 40) frees ~900 MiB of f64 terms and ranks); the keys then
+share those blocks, so no two replays may overlap on the device and
+each replay's outputs are copied out before the next replay starts: a
+replay waits on an event of the device's last replay, whatever stream
+it is queued on, and the slab step copies its rows to pinned memory,
+the batch step to tensors of its own on the same stream.  The pools,
+capture streams and last-replay events are held a device, as the keys
+are.
 
 When a key captures:
 
 * a slab's at its first slab, after ``WARMUP_STEPS`` eager steps on the
   capture stream: the slab path runs a few shapes (B = 8192, a depth
   bucket each) many times over;
-* a batch's at its second batch (``run_parts``, whole or split into
-  parts): the first runs eagerly, the third and later replay.  A
-  batch's B is a bucket and its D a depth bucket, so a run meets ten
-  keys or so, and each depth bucket ends in a one-off tail; a capture
-  costs tens of ms, more than a tail saves by it.  The first eager
-  batch is the key's warm-up (it cuts the assembly tables of its depth
-  and loads the kernels of its shape, neither of which a capture may
-  do), so the capture runs no warm-up step of its own.
+* a batch's at its second batch (``run_batch``): the first runs
+  eagerly, the third and later replay.  A batch's B is a bucket and its
+  D a depth bucket, so a run meets ten keys or so, and each depth bucket
+  ends in a one-off tail; a capture costs tens of ms, more than a tail
+  saves by it.  The first eager batch is the key's warm-up (it cuts the
+  assembly tables of its depth and loads the kernels of its shape,
+  neither of which a capture may do), so the capture runs no warm-up
+  step of its own.
 
 ``ops.glfgen_kernels.LAUNCHES`` is counted by the wrappers, in Python,
 and a replay runs no wrapper.  The warm-up steps and the capture are
@@ -238,9 +237,7 @@ def _device(device: torch.device):
 
 class SlabStepGraph:
     """The captured scoring steps of a process, slab and batch, one a
-    key (device, B, D, ModelParams, DeviceTables, StepSpec, part); the
-    part is the index of a part of a batch or slab split over several
-    devices (``run_parts``), None for a whole one.
+    key (device, B, D, ModelParams, DeviceTables, StepSpec).
 
     ``capture`` turns a step into (its outputs, a replay); on a card it
     is ``cuda_graph_capture``, and ``device_types`` are the devices it
@@ -264,18 +261,16 @@ class SlabStepGraph:
 
     @staticmethod
     def key(device, B: int, D: int, params: ModelParams,
-            dtabs: DeviceTables, spec: StepSpec = SLAB,
-            part: int | None = None) -> tuple:
-        return (torch.device(device), B, D, params, id(dtabs), spec, part)
+            dtabs: DeviceTables, spec: StepSpec = SLAB) -> tuple:
+        return (torch.device(device), B, D, params, id(dtabs), spec)
 
     def step(self, B: int, D: int, dtabs: DeviceTables, params: ModelParams,
              device, spec: StepSpec = SLAB,
-             warmup_steps: int = WARMUP_STEPS,
-             part: int | None = None) -> CapturedStep:
+             warmup_steps: int = WARMUP_STEPS) -> CapturedStep:
         """The captured step of this key, captured now if it is new, with
         the key's device current, on its capture stream, into its pool."""
         device = torch.device(device)
-        key = self.key(device, B, D, params, dtabs, spec, part)
+        key = self.key(device, B, D, params, dtabs, spec)
         with self._lock:
             step = self._steps.get(key)
             if step is None:
@@ -336,116 +331,61 @@ class SlabStepGraph:
             self._replayed(step)
             return out
 
-    def run_parts(self, parts, params: ModelParams, spec: StepSpec,
-                  gather) -> tuple[str, list[CompactResult]]:
-        """A batch or slab in one or more parts, each through its own
-        key's step, without a wait: ``parts`` is a list of (device,
-        DeviceTables, stacked_h, meta_h), part i keyed (device, B, D,
-        params, tables, ``spec``, i), so that two parts of one shape on
-        one device keep their own buffers; a whole one (a single part) is
-        keyed with part None.  Each part is uploaded and replayed on its
-        device's capture stream, after that device's last replay; parts
-        on different devices do not wait on each other.  Each part's
-        CompactResult is copied to ``gather`` on its stream (a clone
-        where it lies there already), and the current stream of
-        ``gather`` waits for every part.
+    def run_batch(self, stacked_h: np.ndarray, meta_h: np.ndarray,
+                  dtabs: DeviceTables, params: ModelParams, spec: StepSpec,
+                  device) -> tuple[str, CompactResult]:
+        """One compact batch in its host upload layout ([2, B, D] lanes,
+        metadata [R, B]) through its key's step on the device's capture
+        stream, after the device's last replay, without a wait.  Returns
+        the route and the CompactResult on ``device``, which the current
+        stream waits for.
 
-        Route: a batch key's first call scores each part eagerly from a
-        pageable upload ("first", the key's warm-up), its second
-        captures every part without a warm-up step ("capture"); a slab's
-        first captures every part after ``WARMUP_STEPS`` eager steps.
-        Later ones replay from pinned staging ("replay").  A part whose
-        capture fails raises, and no part of the call keeps a graph.
-        The uploads count in STATS as ``device.upload``, the steps as
-        ``device.score``, the captures as ``device.capture``.
-
-        Parts on distinct cards (a copy from one card to ``gather``, a
-        stream waiting on another card's, a capture with another card
-        current) are held by chip_smoke.py's ``--cards`` run; the
-        default smoke and the card tests run every part on cuda:0."""
-        gather = torch.device(gather)
-        batch = spec.packed16 is not None
-        keys = [self.key(dev, st.shape[1], st.shape[2], params, dtabs, spec,
-                         None if len(parts) == 1 else i)
-                for i, (dev, dtabs, st, _) in enumerate(parts)]
+        Route: the key's first batch is scored eagerly from a pageable
+        upload ("first", the key's warm-up), its second captures without
+        a warm-up step ("capture"), later ones replay from pinned
+        staging ("replay"); a replay's outputs are copied to tensors of
+        their own before the device's next replay.  A failed capture
+        raises and keeps no graph.  The upload counts in STATS as
+        ``device.upload``, the step as ``device.score``, the capture as
+        ``device.capture``."""
+        device = torch.device(device)
+        _, B, D = stacked_h.shape
+        key = self.key(device, B, D, params, dtabs, spec)
         with self._lock:
-            if keys[0] in self._steps:
-                route = "replay"
-            elif batch and keys[0] not in self._seen:
+            stream = self._stream(device)
+            cur = _current_stream(device)
+            if stream is not None:
+                # the tables were written on the current stream
+                stream.wait_stream(cur)
+            if key not in self._seen:
                 route = "first"
+                with _on(stream):
+                    with STATS.timer("device.upload"):
+                        up = [torch.from_numpy(np.ascontiguousarray(a))
+                              .to(device) for a in (stacked_h, meta_h)]
+                    with STATS.timer("device.score"):
+                        out = spec.score(*up, dtabs, params)
+                self._seen.add(key)
             else:
-                route = "capture"
-            streams = [self._stream(dev) for dev, *_ in parts]
-            for (dev, *_), stream in zip(parts, streams):
-                if stream is not None:
-                    # the tables were written on the device's stream
-                    stream.wait_stream(_current_stream(dev))
-            if route == "first":
-                outs = self._parts_eager(parts, params, spec, streams, gather)
-                self._seen.update(keys)
-            else:
-                if route == "capture":
+                step = self._steps.get(key)
+                route = "replay" if step is not None else "capture"
+                if step is None:
                     with STATS.timer("device.capture"):
-                        try:
-                            steps = [self.step(
-                                st.shape[1], st.shape[2], dtabs, params, dev,
-                                spec, 0 if batch else WARMUP_STEPS,
-                                part=key[6])
-                                for (dev, dtabs, st, _), key
-                                in zip(parts, keys)]
-                        except BaseException:
-                            for key in keys:
-                                self._steps.pop(key, None)
-                            raise
-                else:
-                    steps = [self._steps[key] for key in keys]
-                outs = self._parts_replayed(parts, steps, streams, gather)
-            cur = _current_stream(gather)
-            if cur is not None:
-                for stream in set(streams) - {None}:
-                    cur.wait_stream(stream)
-                for out in outs:
-                    for t in out:
-                        t.record_stream(cur)
-            return route, outs
-
-    def _parts_eager(self, parts, params, spec, streams, gather):
-        """Each part's eager step on its device's capture stream (its
-        key's warm-up), from a pageable upload."""
-        ups = []
-        with STATS.timer("device.upload"):
-            for (dev, _, st, mt), stream in zip(parts, streams):
+                        step = self.step(B, D, dtabs, params, device, spec,
+                                         0)
                 with _on(stream):
-                    ups.append((torch.from_numpy(np.ascontiguousarray(st))
-                                .to(dev),
-                                torch.from_numpy(np.ascontiguousarray(mt))
-                                .to(dev)))
-        outs = []
-        with STATS.timer("device.score"):
-            for (dev, dtabs, *_), stream, up in zip(parts, streams, ups):
-                with _on(stream):
-                    out = spec.score(*up, dtabs, params)
-                    outs.append(CompactResult(*(t.to(gather) for t in out)))
-        return outs
-
-    def _parts_replayed(self, parts, steps, streams, gather):
-        """Each part's upload and replay on its device's capture stream,
-        its outputs copied to ``gather`` before the device's next
-        replay."""
-        with STATS.timer("device.upload"):
-            for (_, _, st, mt), step, stream in zip(parts, steps, streams):
-                with _on(stream):
-                    step.upload(st, mt)
-        outs = []
-        with STATS.timer("device.score"):
-            for step, stream in zip(steps, streams):
-                with _on(stream):
-                    self._replay(step)
-                    outs.append(CompactResult(*(
-                        t.to(gather, copy=True)
-                        for t in (step.count, step.rows, step.err))))
-                    self._replayed(step)
-        return outs
+                    with STATS.timer("device.upload"):
+                        step.upload(stacked_h, meta_h)
+                    with STATS.timer("device.score"):
+                        self._replay(step)
+                        out = CompactResult(*(t.clone() for t in (
+                            step.count, step.rows, step.err)))
+                        self._replayed(step)
+            if stream is not None:
+                cur.wait_stream(stream)
+                for t in out:
+                    t.record_stream(cur)
+            return route, out
 
     def captures(self) -> dict[tuple, float]:
         """Seconds each key's warm-up and capture took."""

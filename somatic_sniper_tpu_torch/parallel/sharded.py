@@ -403,8 +403,7 @@ def call_pair_windows(
                 with STATS.context(window=wi):
                     plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off,
                                      prefilter, cns_mode="proof")
-            slab_disp.add_window(wi, win, pu_t, pu_n, plan,
-                                 remaining=len(todo) - 1 - i)
+            slab_disp.add_window(wi, win, pu_t, pu_n, plan)
             yield from slab_disp.ready()
         if slab_disp is not None:
             with STATS.timer("tail"):

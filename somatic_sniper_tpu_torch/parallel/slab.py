@@ -7,6 +7,9 @@ torch: each full slab is uploaded on a dedicated CUDA stream, scored by
 one replay of ``models.somatic.call_batch_packed`` captured as a CUDA
 graph (``models.step_graph``; the counterpart of the source's jitted
 step), and its i32 rows come back after one ``stream.synchronize()``.
+On the CPU the eager step scores the slab.  A process scores on its one
+device; several GPUs are reached through several processes
+(``--shards`` / ``--jobs``, see ``runner``).
 Not copied: the source's
 ``_dispatch_and_fetch`` (it imports JAX) and its u8 row decode; the
 port's rows carry the slab index whole.
@@ -51,9 +54,8 @@ import torch
 
 from ..io.native_api import exact_pair_rows, slab_fill_pair
 from ..models.somatic import (COMPACT_FIELDS, MAX_D, MAX_D_NARROW,
-                              call_batch_packed, compact_rows,
-                              packed_column_batches)
-from ..models.step_graph import SLAB, STEP_GRAPHS
+                              call_batch_packed)
+from ..models.step_graph import STEP_GRAPHS
 from ..output.dqstats import get_dqstats_rows
 from ..utils.stats import STATS
 
@@ -144,11 +146,6 @@ class _Seg(NamedTuple):
     ref16: np.ndarray   # int32 [n]
     start: int          # row range [start, end) inside the slab
     end: int
-    # pileup indices kept so the FINAL partial slab can be scored
-    # host-side instead of dispatched (see finish): two int64 views,
-    # ~16 B/column, held only while the segment is in the open slab
-    ti: np.ndarray
-    ni: np.ndarray
 
 
 class _WindowState:
@@ -183,7 +180,7 @@ class TorchSlabDispatcher:
     host f64 tables for the deep-column host-side scorer.  Windows come
     out as (window index, window, output lines of ``fmt``), or, with
     ``fmt`` None, as ``SniperRecord`` objects: every row of a window,
-    from the card or from the host's deep and tail scoring, carries its
+    from the card or from the host's deep scoring, carries its
     36 dqstats columns, which the record builder turns into ``DqStats``.
     """
 
@@ -227,8 +224,6 @@ class TorchSlabDispatcher:
         self._dhist = np.zeros(HIST_TOP + 1, np.int64)
         self._total_cols = 0
         self._deep_cols = 0
-        self._windows_seen = 0
-        self._plan_cols = 0
         self._upgraded = False
         self._warned_deep = False
 
@@ -243,19 +238,9 @@ class TorchSlabDispatcher:
         self.fill = 0
         self.segs = []
 
-    def add_window(self, wi, win, pu_t, pu_n, plan,
-                   remaining: int | None = None) -> None:
+    def add_window(self, wi, win, pu_t, pu_n, plan) -> None:
         """Assign every plan column of a window: shallow ones into slabs,
-        deep ones to the host-side exact scorer.
-
-        ``remaining`` (windows still to come, when the driver knows it)
-        enables the END-GAME cutover: once the projected rest of the run
-        fits in the open slab AND sits under the device threshold,
-        every further column is scored host-side immediately.  Those
-        columns would have become the finish-time host tail anyway —
-        scoring them as they arrive overlaps the work with the remaining
-        loads, and it guarantees no slab is still in flight when the
-        last load lands (the fast path's residual end-of-run stall)."""
+        deep ones to the host-side exact scorer."""
         ws = _WindowState(wi, win, pu_t, pu_n)
         self.order.append(ws)
         n = len(plan.keys)
@@ -265,8 +250,6 @@ class TorchSlabDispatcher:
                 np.minimum(dmax.astype(np.int64), HIST_TOP),
                 minlength=HIST_TOP + 1,
             )
-            self._windows_seen += 1
-            self._plan_cols += n
             if self.D is None:
                 # stage until enough depth evidence: the hold keeps
                 # ready() from yielding the window before assignment
@@ -278,9 +261,6 @@ class TorchSlabDispatcher:
                     or len(self._staged) >= D_SAMPLE_WINDOWS
                 ):
                     self._drain_staged()
-            elif self._endgame(n, remaining):
-                sel = np.arange(n, dtype=np.int64)
-                self._host_cols(ws, plan, sel, "host_tail")
             else:
                 self._assign(ws, plan)
         if self.fill and len(self.order) >= self.max_live:
@@ -288,17 +268,6 @@ class TorchSlabDispatcher:
             # could otherwise pin hundreds of windows under one slab)
             self._flush()
         self._pump()
-
-    def _endgame(self, n: int, remaining: int | None) -> bool:
-        """True when the projected rest of the run would end up as the
-        finish-time host tail anyway (fits in the open slab, below the
-        device threshold) — score it host-side NOW instead, under the
-        remaining loads."""
-        if remaining is None or self._windows_seen < 4:
-            return False
-        mean = (self._plan_cols - n) / max(self._windows_seen - 1, 1)
-        projected = self.fill + n + remaining * mean
-        return projected < min(self.B, self._tail_break_even(self.B))
 
     def _drain_staged(self) -> None:
         """Pin D from the accumulated histogram; assign staged windows."""
@@ -402,8 +371,7 @@ class TorchSlabDispatcher:
                 self.meta_h[2, s:e],
             )
             self.segs.append(
-                _Seg(ws, np.ascontiguousarray(plan.keys[sel]), ref16,
-                     s, e, ti, ni)
+                _Seg(ws, np.ascontiguousarray(plan.keys[sel]), ref16, s, e)
             )
             with self._lock:
                 ws.outstanding += 1
@@ -426,12 +394,12 @@ class TorchSlabDispatcher:
             axis=1,
         )
 
-    def _host_cols(self, ws, plan, sel, stat: str) -> None:
-        """Exact host scoring of a plan subset (deep columns, the
-        end-game, or the finish tail); results stage like any device
+    def _host_deep(self, ws, plan, sel) -> None:
+        """Deep columns: native exact scoring, no device involvement
+        (the run keeps one slab shape); results stage like any device
         batch.  Exact output satisfies the fast contract by
         construction — same calls, zero phred drift."""
-        with STATS.context(window=ws.wi), STATS.timer(stat):
+        with STATS.context(window=ws.wi), STATS.timer("host_deep"):
             sel = np.ascontiguousarray(sel)
             p = self.params
             rows = exact_pair_rows(
@@ -439,7 +407,7 @@ class TorchSlabDispatcher:
                 plan.ref16[sel], self.tabs, p.use_joint_priors,
                 p.min_somatic_qual, p.include_loh, p.include_gor,
             )
-            STATS.add(stat + "_columns", len(sel))
+            STATS.add("host_deep_columns", len(sel))
             if len(rows):
                 rows = self._widen_with_dq(
                     ws.pu_t, ws.pu_n, plan.ti[sel], plan.ni[sel],
@@ -452,20 +420,7 @@ class TorchSlabDispatcher:
                         rows,
                     ))
 
-    def _host_deep(self, ws, plan, deep_idx) -> None:
-        """Deep columns: native exact scoring, no device involvement
-        (the run keeps one slab shape)."""
-        self._host_cols(ws, plan, deep_idx, "host_deep")
-
     # -- dispatch / collect ----------------------------------------------
-
-    def _tail_break_even(self, count: int) -> int:
-        """Column count below which ``count`` tail columns host-score:
-        the fixed threshold runner.device_min_cols (0 by default, so
-        the run's end is dispatched like any other slab)."""
-        from ..runner import device_min_cols
-
-        return max(0, device_min_cols())
 
     def _flush(self) -> None:
         if self.fill == 0:
@@ -503,10 +458,8 @@ class TorchSlabDispatcher:
         (models.step_graph), whose fixed buffers the next slab reuses:
         that holds because one slab is in flight at a time (the
         collector has one worker), which the ``_in_flight`` lock
-        asserts.  Split over several devices, each part goes through
-        its device's captured step (``parallel.sharding
-        .graphed_split``).  Only the CPU scores eagerly; a failed
-        capture or replay raises.  ``slab``: the slab's index, the id
+        asserts.  Only the CPU scores eagerly; a failed capture or
+        replay raises.  ``slab``: the slab's index, the id
         the device thread's spans carry."""
         if not self._in_flight.acquire(blocking=False):
             raise AssertionError("a second slab in flight")
@@ -517,16 +470,10 @@ class TorchSlabDispatcher:
             self._in_flight.release()
 
     def _score_slab(self, stacked_h, meta_h):
-        from ..runner import _raise_on_count_error, data_mesh, dtabs_for
+        from ..runner import _raise_on_count_error
 
         dtabs = self.dtabs_fn()
-        graphs = STEP_GRAPHS
         STATS.add(f"slabs_at_depth_{stacked_h.shape[2]}", 1)
-        mesh = data_mesh(self.device)
-        if mesh is not None and stacked_h.shape[1] % len(mesh) != 0:
-            mesh = None  # such a slab goes unsplit (slab.py:513)
-            STATS.add("slabs_unsplit", 1)
-        graphed = all(graphs.captures_on(d) for d in mesh or [self.device])
         ctx = (torch.cuda.stream(self._stream) if self._stream is not None
                else contextlib.nullcontext())
         with ctx:
@@ -534,37 +481,15 @@ class TorchSlabDispatcher:
                 # the tables were uploaded on the default stream
                 self._stream.wait_stream(
                     torch.cuda.default_stream(self.device))
-            if mesh is not None:
-                # each device is sent its part of the slab; the rows are
-                # gathered and merged on the first
-                STATS.add("slabs_split", 1)
-                if graphed:
-                    from .sharding import graphed_split
-
-                    STATS.add("slabs_graphed", 1)
-                    res = graphed_split(graphs, mesh, stacked_h, meta_h,
-                                        dtabs_for(self.params, "fast"),
-                                        self.params, SLAB)[1]
-                else:  # CPU parts: the eager step over the plain versions
-                    from .sharding import sharded_call_batch
-
-                    cb_t, cb_n = packed_column_batches(
-                        torch.from_numpy(stacked_h.view(np.int32)),
-                        torch.from_numpy(meta_h))
-                    res = compact_rows(
-                        sharded_call_batch(mesh, cb_t, cb_n,
-                                           dtabs_for(self.params, "fast"),
-                                           self.params),
-                        stacked_h.shape[1])
-            elif graphed:
+            if STEP_GRAPHS.captures_on(self.device):
                 # the captured step, and never the eager one
                 STATS.add("slabs_graphed", 1)
-                return graphs.run(stacked_h, meta_h, dtabs, self.params,
-                                  self.device)
-            else:  # the CPU: the eager step over the plain versions
-                res = call_batch_packed(torch.from_numpy(
-                    stacked_h.view(np.int32)), torch.from_numpy(meta_h),
-                    dtabs, self.params)
+                return STEP_GRAPHS.run(stacked_h, meta_h, dtabs,
+                                       self.params, self.device)
+            # the CPU: the eager step over the plain versions
+            res = call_batch_packed(torch.from_numpy(
+                stacked_h.view(np.int32)), torch.from_numpy(meta_h),
+                dtabs, self.params)
             count = res.count.to("cpu")
             err = res.err.to("cpu")
             rows = res.rows.to("cpu")
@@ -663,54 +588,16 @@ class TorchSlabDispatcher:
             STATS.add("records_emitted", len(ws.records))
             yield ws.wi, ws.win, [r for _, r in ws.records]
 
-    def _host_tail(self) -> None:
-        """Score the open (final, partial) slab host-side via the exact
-        native scorer instead of dispatching it.
-
-        The final slab's dispatch->fetch round trip is the run's ONLY
-        unhidden device latency — every mid-run dispatch rides under
-        later plan/fill/emit work, but nothing follows the last one.
-        Below the device threshold (runner.device_min_cols, which also
-        gates small whole-file runs; 0 unless set) the tail is scored
-        on the host.  Exact values satisfy the fast-mode
-        output contract by construction — same calls, zero phred drift
-        (tests pin byte-level window invariance either way)."""
-        segs, self.segs = self.segs, []
-        self.fill = 0
-        p = self.params
-        with STATS.timer("host_tail"):
-            for seg in segs:
-                rows = exact_pair_rows(
-                    seg.ws.pu_t, seg.ws.pu_n, seg.ti, seg.ni, seg.ref16,
-                    self.tabs, p.use_joint_priors, p.min_somatic_qual,
-                    p.include_loh, p.include_gor,
-                )
-                STATS.add("host_tail_columns", len(seg.ti))
-                if len(rows):
-                    rows = self._widen_with_dq(
-                        seg.ws.pu_t, seg.ws.pu_n, seg.ti, seg.ni,
-                        seg.ref16, rows,
-                    )
-                with self._lock:
-                    if len(rows):
-                        seg.ws.pending.append((
-                            seg.keys, seg.ref16.astype(np.int64), rows
-                        ))
-                    seg.ws.outstanding -= 1
-
     def finish(self):
         """Flush + collect everything; yield all remaining windows.
 
         Windows are emitted as soon as their last slab lands (the
         ``yield from self.ready()`` inside the loop): the held-back
         landed slab's decode + merged emit runs UNDER the final partial
-        slab's dispatch->fetch round trip instead of after it.  A
-        partial final slab below the device threshold skips the device
-        entirely (see _host_tail)."""
+        slab's dispatch->fetch round trip instead of after it.  The
+        final slab is dispatched like any other, its padding empty."""
         if self._staged:
             self._drain_staged()  # short runs: pin D from what we have
-        if 0 < self.fill < self._tail_break_even(self.fill):
-            self._host_tail()
         self._flush()
         while self.queue:
             self._collect_one()

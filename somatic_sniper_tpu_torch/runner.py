@@ -20,10 +20,10 @@ full-u32 batches through the f64 glfgen.  The JAX package pins that
 exact compute to the host CPU because its accelerator emulates f64; a
 GPU has f64 units, so here it runs on the device the caller names.
 
-With more than one visible GPU every batch and slab whose size the
-number of GPUs divides is split over them (``data_mesh``): on cards one
-captured step a part (``parallel.sharding.graphed_split``), on the CPU
-and for a full CallResult ``parallel.sharding.sharded_call_batch``.
+A process scores on the one device it is given.  Several GPUs are
+reached through several processes: ``--shards`` / ``--shard-index``
+with a card each in ``CUDA_VISIBLE_DEVICES`` (``--jobs`` puts every
+worker on the first card).
 
 This module imports torch, and the modules that import it, only inside
 the functions that make a tensor: the all-host exact run
@@ -34,7 +34,6 @@ lines (``_build_records``).
 
 from __future__ import annotations
 
-import contextlib
 import os
 import threading
 from dataclasses import dataclass
@@ -102,45 +101,6 @@ def require_native(what: str) -> None:
             "(somatic_sniper_tpu_torch/io/native), which is unavailable")
 
 
-_forced_mesh: list | None = None
-
-
-def data_mesh(device) -> list | None:
-    """The devices a batch or slab scored on ``device`` is split over, or
-    None for no split (runner.py:120-145): every visible GPU,
-    ``cuda:0..n-1``, when ``device`` is a GPU and there is more than
-    one; ``SNIPER_NO_MESH`` set keeps every dispatch on ``device``
-    alone."""
-    import torch
-
-    if _forced_mesh is not None:
-        return _forced_mesh
-    if os.environ.get("SNIPER_NO_MESH"):
-        return None
-    if torch.device(device).type != "cuda" or torch.cuda.device_count() <= 1:
-        return None
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-
-
-@contextlib.contextmanager
-def forced_mesh(devices):
-    """Make ``data_mesh`` return ``devices`` (a list of torch.device, or
-    None) inside the block, whatever the machine has: the dry run's way
-    to put the production dispatch through the split on one card or on
-    the CPU."""
-    global _forced_mesh
-    saved, _forced_mesh = _forced_mesh, devices
-    try:
-        yield
-    finally:
-        _forced_mesh = saved
-
-
-def dtabs_for(params: ModelParams, precision: str):
-    """device -> that device's DeviceTables (cached per device)."""
-    return lambda dev: device_tables(build_tables(params), dev, precision)
-
-
 def _load_pileups(tumor_bam, normal_bam, params, flag_args=None):
     """Decode + columnize both BAMs (runner.py:203-230): natively, one OS
     thread per file; without the native library, the pure-Python decode
@@ -203,23 +163,6 @@ def can_exact_native(pu_t, pu_n, ref_blob) -> bool:
         and pu_n.owner is not None
         and getattr(pu_n.owner, "_ptr", None) is not None
     )
-
-
-def device_min_cols() -> int:
-    """Survivor count below which fast runs score on the host instead
-    of dispatching: ``SNIPER_DEVICE_MIN_COLS``, else 0.
-
-    The JAX package derives its default from a probed link round trip
-    (runner.py:452-514), because its accelerator sat behind a remote
-    link; a card on the host's PCIe has no such latency to hide, so
-    the port always dispatches unless told otherwise."""
-    env = os.environ.get("SNIPER_DEVICE_MIN_COLS")
-    if env is not None:
-        try:
-            return int(env)
-        except ValueError:
-            pass
-    return 0
 
 
 def make_plan(pu_t, pu_n, tabs, ref_blob, ref_off, prefilter: bool,
@@ -357,12 +300,6 @@ def call_pair(
         return
     plan = make_plan(pu_t, pu_n, tabs, ref_blob, ref_off, prefilter,
                      cns_mode="proof")
-    if len(plan.keys) < device_min_cols():
-        for _, rec in exact_records_native(
-                pu_t, pu_n, tabs, ref_blob, ref_off, refcache, fmt,
-                plan=plan):
-            yield rec
-        return
     from .parallel.slab import TorchSlabDispatcher
 
     disp = TorchSlabDispatcher(
@@ -458,23 +395,15 @@ def submit_call_batch(batch: PairedBatch, ref16: np.ndarray,
     (i32 rows, K = min(MAX_EMIT, bucket)) when ``compact``, else the
     full CallResult of the batch's own columns.
 
-    With a ``data_mesh`` (more than one GPU) the bucket is split into one
-    equal part a device (``batches_split``) when the mesh's size divides
-    it, as the JAX package requires (runner.py:781-782); else it goes
-    unsplit (``batches_unsplit``).  Each compact batch takes one route,
-    counted in STATS:
+    Each compact batch takes one of two routes, counted in STATS:
 
     * on a card the key's captured step (``models/step_graph
-      .STEP_GRAPHS`` through ``parallel.sharding.graphed_split``, whole
-      as one part or split), every depth and both precisions: a key's
-      first batch eagerly (``batches_eager_first``), its second
+      .STEP_GRAPHS.run_batch``), every depth and both precisions: a
+      key's first batch eagerly (``batches_eager_first``), its second
       captured (``batch_captures``), the others replayed; every batch
-      that replays counts in ``batches_graphed``.  A split batch does
-      the same with one captured step a part and device, counted in
-      ``batch_captures_split`` and ``batches_graphed_split``;
+      that replays counts in ``batches_graphed``;
     * on the CPU the eager step over the plain versions
-      (``batches_eager_cpu``), split over the mesh by
-      ``sharded_call_batch``.
+      (``batches_eager_cpu``).
 
     A fast batch deeper than ``MAX_D`` leaves the stand-alone
     ``assembly10``'s error word on the device, in the CompactResult's
@@ -502,48 +431,25 @@ def submit_call_batch(batch: PairedBatch, ref16: np.ndarray,
     STATS.add("device_columns", b0)
     device = torch.device(device)
     graphs = step_graph.STEP_GRAPHS
-    mesh = data_mesh(device)
-    if mesh is not None and B % len(mesh):
-        mesh = None
-        if compact:
-            STATS.add("batches_unsplit", 1)
-    elif mesh is not None and compact:
-        STATS.add("batches_split", 1)
-    if compact and all(graphs.captures_on(d) for d in mesh or [device]):
-        from .parallel.sharding import graphed_split
-
+    if compact and graphs.captures_on(device):
         spec = step_graph.StepSpec(batch.packed16, precision,
                                    min(MAX_EMIT, B))
-        split = "" if mesh is None else "_split"
-        route, res = graphed_split(
-            graphs, mesh or [device], stacked_h, meta_h,
-            (lambda _: dtabs) if mesh is None
-            else dtabs_for(dtabs.params, precision), dtabs.params, spec)
+        route, res = graphs.run_batch(stacked_h, meta_h, dtabs, dtabs.params,
+                                      spec, device)
         STATS.add("batches_eager_first" if route == "first"
-                  else f"batches_graphed{split}", 1)
+                  else "batches_graphed", 1)
         if route == "capture":
-            STATS.add(f"batch_captures{split}", 1)
+            STATS.add("batch_captures", 1)
         STATS.add(f"batch_key_{'u16' if batch.packed16 else 'u32'}_"
                   f"{precision}_{B}x{stacked_h.shape[2]}", 1)
         return res
-    if mesh is not None:
-        from .parallel.sharding import sharded_call_batch
-
-        with STATS.timer("device.score"):
-            cb_t, cb_n = stacked_column_batches(
-                torch.from_numpy(stacked_h), torch.from_numpy(meta_h),
-                batch.packed16)
-            res = sharded_call_batch(mesh, cb_t, cb_n,
-                                     dtabs_for(dtabs.params, precision),
-                                     dtabs.params, precision)
-    else:
-        with STATS.timer("device.upload"):
-            stacked = torch.from_numpy(stacked_h).to(device)
-            meta = torch.from_numpy(meta_h).to(device)
-        with STATS.timer("device.score"):
-            res = call_batch(*stacked_column_batches(stacked, meta,
-                                                     batch.packed16),
-                             dtabs, dtabs.params, precision)
+    with STATS.timer("device.upload"):
+        stacked = torch.from_numpy(stacked_h).to(device)
+        meta = torch.from_numpy(meta_h).to(device)
+    with STATS.timer("device.score"):
+        res = call_batch(*stacked_column_batches(stacked, meta,
+                                                 batch.packed16),
+                         dtabs, dtabs.params, precision)
     if not compact:
         return CallResult(*(v if v is None or name == "err" else v[:b0]
                             for name, v in res._asdict().items()))
@@ -709,7 +615,7 @@ def emit_records_compact(keys: np.ndarray, rows: np.ndarray,
     [count, 1 + NF (+ 36)] (runner.py:841-867): leading column the index
     into ``keys``/``ref16``, then the COMPACT_FIELDS, then (when present)
     the tumor and normal dqstats (computed on the device for slab
-    columns, appended by the host for a slab's deep and tail columns);
+    columns, appended by the host for a slab's deep columns);
     without them the builder walks the pileups."""
     if len(rows) == 0:
         return []

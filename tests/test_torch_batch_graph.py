@@ -14,14 +14,13 @@ the CPU with the eager step standing in for the replay
 (``tests/torch_port_util.eager_stand_in``) holds what surrounds the
 graph: the capture policy (a key's first batch eager, its second
 captured, later ones replayed, a one-off tail never captured), the
-routes of a deep fast batch and of the split over devices, the CPU's
-eager route, their counters, the launch counts, two
-pending replays of one key each keeping its own rows, and a failed
-capture.  The card's graph is held to the eager step in
+route of a deep fast batch, the CPU's eager route, their counters, the
+launch counts, pending replays of one key each keeping its own rows at
+sizes across the bucket edges (held to the JAX package), a batch that
+emits more rows than its compact result holds and its full refetch,
+and a failed capture.  The card's graph is held to the eager step in
 tests/test_torch_cuda.py.
 """
-
-import contextlib
 
 import numpy as np
 import pytest
@@ -31,7 +30,9 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 from tests.torch_port_util import (eager_stand_in, f32_tables,  # noqa: E402
-                                   port_params, random_stacked, random_u32)
+                                   held_to_jax, jax_call_batch_stacked,
+                                   paired_batch, port_params, random_stacked,
+                                   random_u32)
 
 from somatic_sniper_tpu import runner as jrunner  # noqa: E402
 from somatic_sniper_tpu.models import somatic as js  # noqa: E402
@@ -50,8 +51,7 @@ CPU = torch.device("cpu")
 PM1 = ("tumor_cnsq", "normal_cnsq", "tumor_vaq", "normal_vaq",
        "somatic_score", "joint_cnsq")
 ROUTES = ("batches_graphed", "batch_captures", "batches_eager_first",
-          "batches_graphed_split", "batch_captures_split", "batches_split",
-          "batches_unsplit", "batches_eager_cpu")
+          "batches_eager_cpu")
 LAYOUTS = [(True, "fast"), (False, "fast"), (False, "exact")]
 LAYOUT_IDS = ["u16-fast", "u32-fast", "u32-exact"]
 
@@ -271,56 +271,125 @@ def test_capture_policy_and_pending_rows(cpu_graphs, packed16, precision):
     assert len(set(answers)) == len(answers)
 
 
-@pytest.mark.parametrize("route", ["deep", "split", "cpu"])
+@pytest.mark.parametrize("route", ["deep", "cpu"])
 def test_eager_routes_are_counted_and_never_captured(cpu_graphs, monkeypatch,
                                                     route):
     """Three batches of one key.  A fast batch deeper than 255 (its
-    assembly's error word stays on the device) and the split over two
-    devices (one captured step a part) take the captured routes: the
-    first eager, the second captured, the third replayed, each counted
-    as such.  Only the CPU without a capturing registry scores eagerly
-    three times and captures nothing.  An exact batch deeper than 255
-    takes the captured route too."""
+    assembly's error word stays on the device) takes the captured route:
+    the first eager, the second captured, the third replayed, each
+    counted as such.  Only the CPU without a capturing registry scores
+    eagerly three times and captures nothing.  An exact batch deeper
+    than 255 takes the captured route too."""
     D = 300 if route == "deep" else 16
     params = ModelParams(min_somatic_qual=0)
     dtabs = device_tables(build_tables(params), CPU)
     if route == "cpu":
         monkeypatch.setattr(sg, "STEP_GRAPHS", sg.SlabStepGraph())
-    mesh = (runner.forced_mesh([CPU, CPU]) if route == "split"
-            else contextlib.nullcontext())
-    with mesh:
-        for seed in (1, 2, 3):
-            batch, ref16 = _batch(64, D, seed, False)
-            res = runner.submit_call_batch(batch, ref16, dtabs, CPU)
-            stacked, meta = random_stacked(64, D, seed, False)
-            want = _port_stacked(stacked, meta, False, dtabs, params,
-                                 "fast", runner.MAX_EMIT)
-            assert _rows(res)[1].tobytes() == _rows(want)[1].tobytes()
-            assert int(res.err) == 0
+    for seed in (1, 2, 3):
+        batch, ref16 = _batch(64, D, seed, False)
+        res = runner.submit_call_batch(batch, ref16, dtabs, CPU)
+        stacked, meta = random_stacked(64, D, seed, False)
+        want = _port_stacked(stacked, meta, False, dtabs, params,
+                             "fast", runner.MAX_EMIT)
+        assert _rows(res)[1].tobytes() == _rows(want)[1].tobytes()
+        assert int(res.err) == 0
     spec = sg.StepSpec(False, "fast", 256)
     if route == "cpu":
         assert _routes() == {"batches_eager_cpu": 3}
         assert cpu_graphs.captures() == {}
-    elif route == "deep":
+    else:
         assert _routes() == {"batches_eager_first": 1, "batch_captures": 1,
                              "batches_graphed": 2}
         assert list(cpu_graphs.captures()) == [
             cpu_graphs.key(CPU, 256, D, params, dtabs, spec)]
-    else:
-        assert _routes() == {"batches_split": 3, "batches_eager_first": 1,
-                             "batch_captures_split": 1,
-                             "batches_graphed_split": 2}
-        part_spec = spec._replace(max_emit=128)
-        assert list(cpu_graphs.captures()) == [
-            cpu_graphs.key(CPU, 128, D, params, dtabs, part_spec, i)
-            for i in (0, 1)]
-    if route == "deep":
         exact = device_tables(build_tables(params), CPU, "exact")
         for seed in (1, 2):
             batch, ref16 = _batch(64, D, seed, False)
             runner.submit_call_batch(batch, ref16, exact, CPU,
                                      precision="exact")
         assert _routes()["batch_captures"] == 2
+
+
+LAYOUTS_B0 = [1, 255, 256, 300, 2048, 2049, 4100]
+
+
+@pytest.mark.parametrize("b0", LAYOUTS_B0)
+@pytest.mark.parametrize("packed16,precision", LAYOUTS, ids=LAYOUT_IDS)
+def test_whole_batch_rows_equal_jax(cpu_graphs, packed16, precision, b0):
+    """Three batches of one key at sizes across the bucket edges, all
+    left pending: the first eager, the second captured, the third
+    replayed; each keeps its own rows, byte-equal to the eager step's on
+    its padded upload, and the replayed one is held to the JAX
+    package's ``call_batch_stacked`` (exact: equal; fast: the fast
+    contract)."""
+    D = 8 if b0 > 2048 else 16
+    jparams = JT.ModelParams(min_somatic_qual=0)
+    params = port_params(jparams)
+    dtabs = device_tables(build_tables(params), CPU, precision)
+    B = runner._b_bucket(b0)
+    K = min(runner.MAX_EMIT, B)
+    pending = []
+    for seed in (1, 2, 3):
+        batch, ref16, padded = paired_batch(b0, D, 10 * seed + b0, packed16)
+        pending.append((padded, runner.submit_call_batch(
+            batch, ref16, dtabs, CPU, precision=precision)))
+    answers = set()
+    for padded, res in pending:
+        want = _port_stacked(*padded, packed16, dtabs, params, precision, K)
+        assert res.rows.shape[0] == K and int(res.err) == 0
+        assert (int(res.count), res.rows.numpy().tobytes()) == \
+            (int(want.count), want.rows.numpy().tobytes())
+        assert int(res.count) > 0 or b0 == 1
+        answers.add(res.rows.numpy().tobytes())
+    assert len(answers) == 3
+    assert _routes() == {"batches_eager_first": 1, "batch_captures": 1,
+                         "batches_graphed": 2}
+    assert list(cpu_graphs.captures()) == [cpu_graphs.key(
+        CPU, B, D, params, dtabs, sg.StepSpec(packed16, precision, K))]
+    padded, res = pending[2]
+    n = int(res.count)
+    want = jax_call_batch_stacked(padded, packed16, precision, jparams)
+    assert int(want.count) == n
+    held_to_jax(res.rows[:n].numpy(), np.asarray(want.rows)[:n],
+                precision == "exact")
+
+
+@pytest.mark.parametrize("packed16,precision", LAYOUTS, ids=LAYOUT_IDS)
+def test_whole_batch_overflow_and_refetch(cpu_graphs, monkeypatch, packed16,
+                                          precision):
+    """A batch that emits more than its compact result holds (MAX_EMIT
+    cut to 24 here): on every route the count and the 24 rows equal the
+    eager step's, overflow and all; the full CallResult that
+    ``collect_pending`` refetches for it (the eager step, never
+    captured) equals ``call_batch`` on the unpadded batch, and its first
+    24 emitted columns are the compact rows."""
+    monkeypatch.setattr(runner, "MAX_EMIT", 24)
+    params = ModelParams(min_somatic_qual=0)
+    dtabs = device_tables(build_tables(params), CPU, precision)
+    for seed in (1, 2, 3):
+        batch, ref16, padded = paired_batch(300, 16, 40 + seed, packed16)
+        res = runner.submit_call_batch(batch, ref16, dtabs, CPU,
+                                       precision=precision)
+        want = _port_stacked(*padded, packed16, dtabs, params, precision, 24)
+        assert res.rows.shape[0] == 24 < int(res.count)
+        assert (int(res.count), res.rows.numpy().tobytes()) == \
+            (int(want.count), want.rows.numpy().tobytes())
+    assert _routes() == {"batches_eager_first": 1, "batch_captures": 1,
+                         "batches_graphed": 2}
+    full = runner.submit_call_batch(batch, ref16, dtabs, CPU, compact=False,
+                                    precision=precision)
+    assert len(cpu_graphs.captures()) == 1
+    stacked, meta = random_stacked(300, 16, 43, packed16)
+    s = torch.from_numpy(stacked if packed16 else stacked.view(np.int32))
+    whole = ts.call_batch(*ts.stacked_column_batches(
+        s, torch.from_numpy(meta), packed16), dtabs, params, precision)
+    for name, a, b in zip(whole._fields, full, whole):
+        assert (a is None) == (b is None), name
+        if a is not None and name != "err":
+            assert a.shape[0] == 300 and torch.equal(a, b), name
+    assert int(full.emit.sum()) == int(res.count)
+    first = torch.nonzero(full.emit)[:24, 0]
+    assert torch.equal(res.rows[:, 0].long(), first)
 
 
 def test_failed_batch_capture_raises_and_keeps_nothing(cpu_graphs,

@@ -373,44 +373,6 @@ def test_cli_exact_on_card_without_native_golden(dev, tmp_path, monkeypatch):
     assert filtered_lines(out) == filtered_lines(DATA / "expected.vcf")
 
 
-@pytest.mark.parametrize("encoding,B,D", [("u32", 4099, 40),
-                                          ("raw32", 8192, 48)])
-def test_split_over_two_streams_equals_unsplit(dev, encoding, B, D):
-    """sharded_call_batch over [card, card]: two parts on two streams,
-    uploaded from the host, every field equal to the unsplit call."""
-    from somatic_sniper_tpu_torch.models.glfgen import ColumnBatch
-    from somatic_sniper_tpu_torch.parallel.sharding import sharded_call_batch
-    from somatic_sniper_tpu_torch.runner import dtabs_for
-
-    params = T.ModelParams(min_somatic_qual=0)
-    batches = []
-    for seed in (3, 4):
-        if encoding == "raw32":
-            s, nk, d, r = random_raw32(B, D, seed)
-            batches.append([s.view(np.int32), d, r, nk])
-        else:
-            s, d, r = random_u32(B, D, seed)
-            batches.append([s.view(np.int32), d, r])
-    batches[1][2] = batches[0][2]
-    host = [ColumnBatch(*(torch.from_numpy(a) for a in b)) for b in batches]
-    card = [ColumnBatch(*(None if t is None else t.to(dev) for t in cb))
-            for cb in host]
-    want = ts.call_batch(*card, device_tables(T.build_tables(params), dev),
-                         params)
-    before = sum(gk.LAUNCHES.values())
-    for pair in (host, card):
-        got = sharded_call_batch([dev, dev], *pair, dtabs_for(params, "fast"),
-                                 params)
-        torch.cuda.synchronize()
-        for name, a, b in zip(want._fields, got, want):
-            assert (a is None) == (b is None), name
-            if a is not None:
-                assert a.device == dev and torch.equal(a, b), name
-    # glfgen twice and score_columns once a part, two parts a call
-    assert sum(gk.LAUNCHES.values()) - before == 12
-    assert int(want.emit.sum()) > 0
-
-
 @pytest.mark.parametrize("B,D", [(8192, 48), (2048, 64)])
 def test_bench_kernel_on_card(dev, B, D):
     """``utils.mfu.bench_kernel`` with no device named runs on the card:
@@ -514,7 +476,7 @@ def test_windowed_records_on_card(dev, prefilter):
     assert gk.LAUNCHES["glfgen32"] == 2 * stats["slabs_dispatched"] > 0
     if not prefilter:
         scored = sum(stats.get(k, 0) for k in (
-            "device_columns", "host_deep_columns", "host_tail_columns"))
+            "device_columns", "host_deep_columns"))
         assert scored == stats["columns_scored"] > 20 * len(recs)
         assert stats["device_columns"] > 0.9 * scored
 
@@ -574,7 +536,6 @@ def test_slab_path_on_card_replays_the_graph(dev, monkeypatch):
     graphs = SlabStepGraph()
     monkeypatch.setattr(slab, "STEP_GRAPHS", graphs)
     monkeypatch.setattr(slab, "call_batch_packed", eager)
-    monkeypatch.setenv("SNIPER_NO_MESH", "1")
     params = T.ModelParams(min_somatic_qual=0)
     tabs = T.build_tables(params)
     dtabs = device_tables(tabs, dev)
@@ -607,7 +568,6 @@ def test_failed_capture_raises_on_card(dev, monkeypatch):
     monkeypatch.setattr(sg, "call_batch_packed", reads_back)
     monkeypatch.setattr(slab, "STEP_GRAPHS", graphs)
     monkeypatch.setattr(slab, "call_batch_packed", eager)
-    monkeypatch.setenv("SNIPER_NO_MESH", "1")
     params = T.ModelParams()
     tabs = T.build_tables(params)
     dtabs = device_tables(tabs, dev)
@@ -655,7 +615,6 @@ def test_graphed_batch_step_equals_eager_on_card(dev, monkeypatch, packed16,
 
     graphs = sg.SlabStepGraph()
     monkeypatch.setattr(sg, "STEP_GRAPHS", graphs)
-    monkeypatch.setenv("SNIPER_NO_MESH", "1")
     D = 40
     params = T.ModelParams(min_somatic_qual=0)
     dtabs = device_tables(T.build_tables(params), dev, precision)
@@ -714,7 +673,6 @@ def test_failed_batch_capture_raises_on_card(dev, monkeypatch):
     graphs = sg.SlabStepGraph()
     monkeypatch.setattr(sg, "STEP_GRAPHS", graphs)
     monkeypatch.setattr(sg, "call_batch_stacked", reads_back)
-    monkeypatch.setenv("SNIPER_NO_MESH", "1")
     params = T.ModelParams()
     dtabs = device_tables(T.build_tables(params), dev)
     batch, ref16, _ = _card_batch(1000, 24, 4, True)
@@ -725,92 +683,6 @@ def test_failed_batch_capture_raises_on_card(dev, monkeypatch):
     assert graphs.captures() == {}
     assert dict(gk.LAUNCHES) == before
     torch.cuda.synchronize()  # the card is still usable
-
-
-@pytest.mark.parametrize("packed16,precision,b0,D", [
-    (False, "fast", 5000, 40), (True, "fast", 5000, 40),
-    (False, "exact", 5000, 40), (False, "fast", 2000, 300),
-], ids=["u32-fast", "u16-fast", "u32-exact", "u32-fast-deep"])
-def test_graphed_split_batch_equals_unsplit_on_card(dev, monkeypatch,
-                                                    packed16, precision, b0,
-                                                    D):
-    """Three batches of one key under ``forced_mesh([cuda:0, cuda:0])``,
-    left pending: the first eager, the second captured (a graph a part),
-    the third replayed; each one's count and rows byte-equal to the
-    unsplit eager step on the same padded upload, a part's launches
-    those of the eager step (twice the fused kernel a part)."""
-    from somatic_sniper_tpu_torch import runner
-    from somatic_sniper_tpu_torch.models import step_graph as sg
-    from somatic_sniper_tpu_torch.utils.stats import STATS
-
-    graphs = sg.SlabStepGraph()
-    monkeypatch.setattr(sg, "STEP_GRAPHS", graphs)
-    params = T.ModelParams(min_somatic_qual=0)
-    dtabs = device_tables(T.build_tables(params), dev, precision)
-    STATS.reset()
-    pending = []
-    with runner.forced_mesh([dev, dev]):
-        for seed in (1, 2, 3):
-            batch, ref16, padded = _card_batch(b0, D, seed, packed16)
-            pending.append((runner.submit_call_batch(
-                batch, ref16, dtabs, dev, precision=precision), padded))
-    snap = STATS.snapshot()
-    assert (snap["batches_split"], snap["batches_eager_first"],
-            snap["batch_captures_split"], snap["batches_graphed_split"]) == \
-        (3, 1, 1, 2)
-    B = runner._b_bucket(b0)
-    answers = []
-    for res, (stacked, meta) in pending:
-        s = torch.from_numpy(stacked if packed16
-                             else stacked.view(np.int32)).to(dev)
-        want = ts.call_batch_stacked(
-            s, torch.from_numpy(meta).to(dev), dtabs, params,
-            packed16=packed16, max_emit=min(runner.MAX_EMIT, B),
-            precision=precision)
-        assert int(res.count) == int(want.count) > 0
-        assert int(res.err) == 0
-        rows, rows_e = res.rows.cpu().numpy(), want.rows.cpu().numpy()
-        assert rows.tobytes() == rows_e.tobytes()
-        answers.append(rows.tobytes())
-    assert len(set(answers)) == 3
-    assert len(graphs.captures()) == 2
-    assert {k[6] for k in graphs.captures()} == {0, 1}
-
-
-def test_graphed_split_slab_equals_unsplit_on_card(dev, monkeypatch):
-    """Slabs through a card dispatcher under ``forced_mesh([cuda:0,
-    cuda:0])``: every slab split and graphed (one captured step a part),
-    no eager step, rows byte-equal to the unsplit eager step."""
-    from somatic_sniper_tpu_torch import runner
-    from somatic_sniper_tpu_torch.models.step_graph import SlabStepGraph
-    from somatic_sniper_tpu_torch.parallel import slab
-    from somatic_sniper_tpu_torch.utils.stats import STATS
-
-    def eager(*args):
-        raise AssertionError("the card ran the eager step")
-
-    graphs = SlabStepGraph()
-    monkeypatch.setattr(slab, "STEP_GRAPHS", graphs)
-    monkeypatch.setattr(slab, "call_batch_packed", eager)
-    params = T.ModelParams(min_somatic_qual=0)
-    tabs = T.build_tables(params)
-    dtabs = device_tables(tabs, dev)
-    disp = slab.TorchSlabDispatcher(lambda: dtabs, tabs, params, None, dev)
-    STATS.reset()
-    try:
-        with runner.forced_mesh([dev, dev]):
-            for seed in (9, 10, 11):
-                stacked, meta, s, m = _card_slab(2048, 48, seed, dev)
-                want = ts.call_batch_packed(s, m, dtabs, params)
-                n, rows = disp._dispatch_and_fetch(stacked, meta)
-                assert n == int(want.count) > 0
-                assert rows.tobytes() == \
-                    want.rows[:n].cpu().numpy().tobytes()
-    finally:
-        disp._collector.shutdown()
-    snap = STATS.snapshot()
-    assert snap["slabs_split"] == snap["slabs_graphed"] == 3
-    assert len(graphs.captures()) == 2
 
 
 def test_deep_fast_batch_error_word_raises_at_collect_on_card(dev,
@@ -828,7 +700,6 @@ def test_deep_fast_batch_error_word_raises_at_collect_on_card(dev,
 
     graphs = sg.SlabStepGraph()
     monkeypatch.setattr(sg, "STEP_GRAPHS", graphs)
-    monkeypatch.setenv("SNIPER_NO_MESH", "1")
     bad = torch.zeros((1, 4), dtype=torch.int32, device=dev)
     real = mg.rescale_counts
     monkeypatch.setattr(mg, "rescale_counts", lambda c: real(c) + bad)

@@ -101,8 +101,8 @@ def test_records_match_the_jax_package(data_dir, monkeypatch, tmp_path, which,
                                        driver, precision):
     """(a) ``fmt=None`` on every driver and precision.  The fast runs
     dispatch however few columns the plan leaves, so that the slab route
-    builds the records, in both packages."""
-    monkeypatch.setenv("SNIPER_DEVICE_MIN_COLS", "0")
+    builds the records, in both packages (tests/conftest.py holds the
+    JAX package's host threshold at 0)."""
     args = _pair(data_dir, which)
     if which == "golden" and driver == "windowed":
         # the windowed driver writes a BAM's index beside it
@@ -126,7 +126,6 @@ def test_batch_route_builds_records(data_dir, monkeypatch):
     batches) walks the pileups for its dqstats and builds the same
     records as the slab route, which takes them from its rows."""
     args = _pair(data_dir, "sim1")
-    monkeypatch.setenv("SNIPER_DEVICE_MIN_COLS", "0")
     slab = _port_records(args, "whole", "fast")
     monkeypatch.setattr(native_api, "available", lambda: False)
     STATS.reset()
@@ -153,7 +152,6 @@ def test_prefilter_output_identical(data_dir, monkeypatch, driver, precision,
     prefilter and the plan's gate drop only columns that could never
     emit, so on and off give the same records, and the same as the JAX
     package's unfiltered run."""
-    monkeypatch.setenv("SNIPER_DEVICE_MIN_COLS", "0")
     args = _pair(data_dir, "sim1")
     p = ModelParams(**PARAMS[params])
     STATS.reset()
@@ -192,7 +190,6 @@ def test_plan_gate_env_reaches_the_plan(data_dir, monkeypatch, driver):
     """(b) F2, tests/test_prefilter.py:167-189: SNIPER_PLAN_GATE decides
     the ``cns_mode`` that reaches ``paired_plan``; without it the
     callers' "proof" does; the records never change."""
-    monkeypatch.setenv("SNIPER_DEVICE_MIN_COLS", "0")
     args = _pair(data_dir, "sim1")
     seen = []
     real = native_api.paired_plan

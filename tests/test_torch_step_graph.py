@@ -27,7 +27,8 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 from tests.torch_port_util import (eager_stand_in,  # noqa: E402
-                                   f32_tables, random_slab)
+                                   f32_tables, held_to_jax, port_params,
+                                   random_slab)
 
 from somatic_sniper_tpu.models import somatic as js  # noqa: E402
 from somatic_sniper_tpu.models import tables as JT  # noqa: E402
@@ -189,6 +190,81 @@ def test_dispatcher_scores_one_slab_at_a_time(monkeypatch):
         with pytest.raises(AssertionError, match="second slab in flight"):
             disp._dispatch_and_fetch(stacked, meta)
     disp._collector.shutdown()
+
+
+@pytest.mark.parametrize("D", [16, 32, 48, 128, 255])
+@pytest.mark.parametrize("B", [96, 100])
+def test_slab_rows_equal_jax(monkeypatch, B, D):
+    """Two slabs through a dispatcher on a registry that captures on the
+    CPU: the first captured after its warm-up steps, the second
+    replayed, both counted as graphed; the rows byte-equal to the eager
+    step's and within the fast contract of the JAX package's
+    ``call_batch_packed``."""
+    from somatic_sniper_tpu_torch.parallel import slab
+    from somatic_sniper_tpu_torch.utils.stats import STATS
+
+    graphs = sg.SlabStepGraph(capture=eager_stand_in, device_types=("cpu",))
+    monkeypatch.setattr(slab, "STEP_GRAPHS", graphs)
+    jparams = JT.ModelParams(min_somatic_qual=0)
+    params = port_params(jparams)
+    dtabs = T.device_tables(T.build_tables(params), CPU)
+    tabs = JT.build_tables(jparams)
+    fk, coef, lhet = f32_tables(tabs)
+    disp = slab.TorchSlabDispatcher(lambda: dtabs, T.build_tables(params),
+                                    params, None, CPU)
+    STATS.reset()
+    try:
+        for seed in (1, 2):
+            stacked, meta = random_slab(B, D, 50 + seed + D)
+            n, rows = disp._dispatch_and_fetch(stacked, meta)
+            want = _eager(stacked, meta, dtabs, params)
+            assert n == want[0] > B // 8
+            assert rows.tobytes() == want[1].tobytes()
+            jw = js.call_batch_packed(
+                jnp.asarray(stacked), jnp.asarray(meta), fk, coef, lhet,
+                tabs.solo_prior, tabs.joint_prior, tabs.qadd, tabs.q_r_int,
+                use_joint=False, min_somatic_qual=0, include_loh=True,
+                include_gor=True, cap_mapq=60, theta=params.theta,
+                eta=params.eta, max_emit=B, glf_backend="xla",
+                row_dtype="i32")
+            assert int(jw.count) == n
+            held_to_jax(rows, np.asarray(jw.rows)[:n], False)
+        snap = STATS.snapshot()
+        assert snap["slabs_graphed"] == 2 == snap[f"slabs_at_depth_{D}"]
+        assert list(graphs.captures()) == [graphs.key(CPU, B, D, params,
+                                                      dtabs)]
+    finally:
+        disp._collector.shutdown()
+        STATS.reset()
+
+
+def test_failed_slab_capture_in_the_dispatcher(monkeypatch):
+    """A slab whose key fails to capture raises out of the dispatcher's
+    fetch, no graph is kept, and the next slab of the key tries the
+    capture again: nothing scores a slab eagerly in its place."""
+    from somatic_sniper_tpu_torch.parallel import slab
+
+    tries = []
+
+    def broken(step, stream, pool):
+        tries.append(1)
+        step()
+        raise RuntimeError("capture failed")
+
+    graphs = sg.SlabStepGraph(capture=broken, device_types=("cpu",))
+    monkeypatch.setattr(slab, "STEP_GRAPHS", graphs)
+    params = T.ModelParams()
+    dtabs = T.device_tables(T.build_tables(params), CPU)
+    disp = slab.TorchSlabDispatcher(lambda: dtabs, T.build_tables(params),
+                                    params, None, CPU)
+    try:
+        for _ in range(2):
+            with pytest.raises(RuntimeError, match="capture failed"):
+                disp._dispatch_and_fetch(*random_slab(64, 16, 4))
+            assert graphs.captures() == {}
+        assert len(tries) == 2
+    finally:
+        disp._collector.shutdown()
 
 
 def test_native_libraries_load_in_a_worker():

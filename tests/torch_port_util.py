@@ -250,3 +250,69 @@ def eager_stand_in(step, stream, pool):
             fixed.copy_(t)
 
     return out, replay
+
+
+# the phred fields the fast contract lets differ by one from the JAX
+# package's (f32 class sums)
+PM1 = ("tumor_cnsq", "normal_cnsq", "tumor_vaq", "normal_vaq",
+       "somatic_score", "joint_cnsq")
+
+
+def paired_batch(b0: int, D: int, seed: int, packed16: bool):
+    """A PairedBatch of the batch path's upload layout (``random_stacked``
+    as ``runner.submit_call_batch`` takes it), its ref16, and its upload
+    (stacked, meta) padded to ``runner._b_bucket(b0)`` as the runner
+    pads it."""
+    from somatic_sniper_tpu_torch import runner
+    from somatic_sniper_tpu_torch.pileup.columnize import PairedBatch
+
+    stacked, meta = random_stacked(b0, D, seed, packed16)
+    extra = (dict(nk_tumor=meta[3], nk_normal=meta[4], rms_tumor=meta[5],
+                  rms_normal=meta[6]) if packed16 else {})
+    batch = PairedBatch(keys=np.arange(b0, dtype=np.int64), ref16=meta[2],
+                        tumor=stacked[0], normal=stacked[1], n_tumor=meta[0],
+                        n_normal=meta[1], **extra)
+    B = runner._b_bucket(b0)
+    padded = (np.stack([runner._pad_b(x, B) for x in stacked]),
+              np.stack([runner._pad_b(x, B) for x in meta]))
+    return batch, meta[2], padded
+
+
+def held_to_jax(rows, rows_w, exact: bool) -> None:
+    """The port's emitted rows [n, 1 + fields (+ 36)] against the JAX
+    package's on the same inputs: exact precision every row equal; fast
+    the calls equal, the phred fields within +/-1 and 99% of the rows
+    equal (the fast contract)."""
+    from somatic_sniper_tpu_torch.models.fields import COMPACT_FIELDS
+
+    rows_w = np.asarray(rows_w).astype(int)
+    if exact:
+        np.testing.assert_array_equal(rows, rows_w)
+        return
+    pm1 = [1 + COMPACT_FIELDS.index(f) for f in PM1]
+    same = [j for j in range(rows.shape[1]) if j not in pm1]
+    np.testing.assert_array_equal(rows[:, same], rows_w[:, same])
+    d = np.abs(rows.astype(int) - rows_w)
+    assert d.max(initial=0) <= 1
+    assert len(d) == 0 or (d == 0).all(axis=1).mean() >= 0.99
+
+
+def jax_call_batch_stacked(padded, packed16: bool, precision: str, jparams):
+    """The JAX package's jitted ``call_batch_stacked`` on a padded upload
+    (``paired_batch``), compact with K = min(B, 16384), XLA backend."""
+    import jax.numpy as jnp
+
+    from somatic_sniper_tpu.models import somatic as js
+    from somatic_sniper_tpu.models import tables as JT
+
+    tabs = JT.build_tables(jparams)
+    fk, coef, lhet = (f32_tables(tabs) if precision == "fast"
+                      else (tabs.fk, tabs.coef, tabs.lhet))
+    B = padded[0].shape[1]
+    return js.call_batch_stacked(
+        jnp.asarray(padded[0]), jnp.asarray(padded[1]), fk, coef, lhet,
+        tabs.solo_prior, tabs.joint_prior, tabs.qadd, tabs.q_r_int,
+        precision=precision, use_joint=jparams.use_joint_priors,
+        min_somatic_qual=jparams.min_somatic_qual,
+        cap_mapq=jparams.cap_mapq, theta=jparams.theta, eta=jparams.eta,
+        max_emit=min(B, 16384), glf_backend="xla", packed16=packed16)
